@@ -7,16 +7,24 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 Phases (any failure raises and the script exits non-zero):
   1. the card's name and power limit (nvidia-smi);
-  2. build every kernel from emu_tpu_torch/csrc with nvcc;
+  2. build every kernel from emu_tpu_torch/csrc (one nvcc per source, in
+     parallel);
   3. each kernel against its plain PyTorch twin on the card, at the shapes
-     the Emu1 caption path gives it, with the error, its tolerance and both
-     times;
+     the Emu1 caption path and the Emu2-Chat int4 path give it, with the
+     error, its tolerance and both times;
   4. a full-width Emu1 cut to 2 layers, built from one seed: last-position
      logits of one caption prompt on the card (bf16, kernels) against the
      CPU (fp32, plain twins);
   5. the full-width, full-depth Emu1 (ViT-g, T5-base Causal Former,
      LLaMA-13B; random weights drawn on the card) answering caption/VQA
-     requests through Emu1Runner, with every kernel's launch count.
+     requests through Emu1Runner, with every kernel's launch count;
+  6. a full-width Emu2-Chat cut to 2 EVA blocks and 2 LLaMA layers, built
+     from one seed: last-position logits of one image + question on the
+     card against the CPU (fp32, plain twins), in bf16 and in int4;
+  7. the full-width, full-depth Emu2-Chat (EVA-4B, LLaMA-33B; random
+     weights drawn and quantized int4 / W8A8 on the card one layer at a
+     time) answering image, two-image chat, 8-frame video and text-only
+     requests through EmuChatGeneration, with every kernel's launch count.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card, or outside a checkout,
 it exits non-zero and prints no result.
@@ -75,12 +83,14 @@ def compare(name: str, got, ref, atol: float, rtol: float) -> dict:
 
 
 def check_kernels(card: str) -> dict:
-    """Phase 3: every kernel against its twin at the slice's shapes."""
+    """Phase 3: every kernel against its twin at the paths' shapes."""
     import torch
     from emu_tpu_torch.ops import decode_attention as D
     from emu_tpu_torch.ops import flash_attention as A
     from emu_tpu_torch.ops import fused_mlp as B
     from emu_tpu_torch.ops import fused_norm as C
+    from emu_tpu_torch.ops import q4_matmul as Q4
+    from emu_tpu_torch.ops import quant as Q
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -160,25 +170,98 @@ def check_kernels(card: str) -> dict:
             lambda: D.decode_attention(qd, kc, vc, valid, **dkw),
             lambda: D.decode_attention_reference(qd, kc, vc, valid, **dkw),
             atol=1e-2, rtol=1e-2)
+
+    # --- the Emu2-Chat int4 path's shapes ---------------------------------
+    # A: EVA-4B self-attention, one 448-px image, q/v biases, D = 112
+    q, k, v = (randn(1, 1025, 16, 112).transpose(1, 2) for _ in range(3))
+    qb, vb = randn(16, 112, std=0.5), randn(16, 112, std=0.5)
+    run("attention_vit_1x16x1025x112",
+        lambda: A.mha_bhsd(q, k, v, qb, vb, scale=112 ** -0.5),
+        lambda: A.attention_reference(q, k, v, qb, vb, scale=112 ** -0.5),
+        atol=1e-2, rtol=1e-2)
+    # C: LLaMA-33B norms, prefill and beam-decode rows, W = 6656
+    w = 1 + randn(6656, std=0.1)
+    for rows in (330, 5):
+        xr, rr = randn(rows, 6656), randn(rows, 6656)
+        run(f"add_rmsnorm_{rows}x6656", lambda: C.rmsnorm_fwd(w, xr, rr)[:2],
+            lambda: C.rmsnorm_reference(w, xr, rr)[:2], atol=1e-2, rtol=1e-2)
+    # D: 5 beams, 52 heads of 128, a 384-slot stacked cache
+    kc, vc = randn(2, 5, 52, 384, 128), randn(2, 5, 52, 384, 128)
+    qd = randn(5, 1, 52, 128)
+    kn, vn = randn(5, 52, 1, 128), randn(5, 52, 1, 128)
+    valid = torch.arange(384, device=dev)[None, :] < 330
+    valid = valid.expand(5, 384).contiguous()
+    dkw = dict(scale=128 ** -0.5, layer=1, k_new=kn, v_new=vn)
+    run("decode_attention_b5_52x384x128",
+        lambda: D.decode_attention(qd, kc, vc, valid, **dkw),
+        lambda: D.decode_attention_reference(qd, kc, vc, valid, **dkw),
+        atol=1e-2, rtol=1e-2)
+    # B-post: the bf16 EVA-4B MLP branch x + LN(fc2(gelu(fc1 x))),
+    # 1792 -> 15360 -> 1792, one and two images
+    x = randn(2, 1025, 1792)
+    w1, w2 = randn(1792, 15360, std=0.02), randn(15360, 1792, std=0.02)
+    b1, b2 = randn(15360, std=0.1), randn(1792, std=0.1)
+    lns, lnb = 1 + randn(1792, std=0.1), randn(1792, std=0.1)
+    kw = dict(ln_scale=lns, ln_bias=lnb, ln_mode="post", residual=True)
+    for xm, m in ((x[:1], 1025), (x, 2050)):
+        run(f"fused_mlp_post_{m}x1792x15360",
+            lambda: B.fused_mlp(xm, w1, b1, w2, b2, **kw),
+            lambda: B.fused_mlp_reference(xm, w1, b1, w2, b2, **kw),
+            atol=2e-2, rtol=2e-2)
+    # E: the W8A8 EVA-4B MLP branch at 2 and 4 images, pre- and post-LN,
+    # hidden blocks of 768
+    q1, q2 = Q.quantize_kernel(w1), Q.quantize_kernel(w2)
+    wq = (q1["kernel_q8"], q1["scale"], b1, q2["kernel_q8"], q2["scale"], b2)
+    x4 = randn(4, 1025, 1792)
+    for mode in ("post", "pre"):
+        ekw = dict(kw, ln_mode=mode, bf=768)
+        for xm, m in ((x, 2050), (x4, 4100)):
+            run(f"fused_mlp_w8a8_{mode}_{m}x1792x15360",
+                lambda: B.fused_mlp_w8a8(xm, *wq, **ekw),
+                lambda: B.fused_mlp_w8a8_reference(xm, *wq, **ekw),
+                atol=2e-2, rtol=2e-2)
+            if not torch.equal(B.fused_mlp_w8a8(xm, *wq, **ekw),
+                               B.fused_mlp_w8a8(xm, *wq, **ekw)):
+                raise AssertionError("fused_mlp_w8a8: two runs gave "
+                                     "different bits")
+    print("  fused_mlp_w8a8: two runs give the same bits at M = 2050, 4100")
+    del w1, w2, q1, q2, wq, x4
+    # F: int4 projections of LLaMA-33B: qkv and the lm_head (ragged N) at 5
+    # beam rows, gate_up at a 330-token prefill
+    for m, k, n, tag in ((5, 6656, 19968, "qkv"), (5, 6656, 32274, "lm_head"),
+                         (330, 6656, 35840, "gate_up")):
+        p = Q.quantize_kernel_int4(randn(k, n, std=0.02))
+        xm = randn(m, k)
+        run(f"matmul_q4_{tag}_{m}x{k}x{n}",
+            lambda: Q4.matmul_q4(xm, p["kernel_q4"], p["scale4"]),
+            lambda: Q4.matmul_q4_reference(xm, p["kernel_q4"], p["scale4"]),
+            atol=1e-2, rtol=1e-2)
+        del p
+    # G: the int4 decode MLP of LLaMA-33B, D = 6656, F = 17920 (block 256)
+    gu = Q.quantize_kernel_int4(randn(6656, 35840, std=0.02))
+    dn = Q.quantize_kernel_int4(randn(17920, 6656, std=0.02))
+    gargs = (gu["kernel_q4"], gu["scale4"], dn["kernel_q4"], dn["scale4"])
+    for m in (1, 5):
+        xm, wr = randn(m, 6656), 1 + randn(6656, std=0.1)
+        run(f"fused_swiglu_q4_{m}x6656x17920",
+            lambda: Q4.fused_swiglu_q4(xm, wr, *gargs),
+            lambda: Q4.fused_swiglu_q4_reference(xm, wr, *gargs),
+            atol=2e-2, rtol=2e-2)
     return results
-
-
-def _tree_to(tree: dict, device, dtype) -> dict:
-    return {k: _tree_to(v, device, dtype) if isinstance(v, dict)
-            else v.to(device=device, dtype=dtype) for k, v in tree.items()}
 
 
 def check_two_layer(card: str, image) -> None:
     """Phase 4: the same 2-layer full-width weights, card bf16 vs CPU fp32."""
     import torch
+    from emu_tpu_torch.bridge import cast_tree
     from emu_tpu_torch.cli.inference import (Emu1Runner, build_runner,
                                              image_system_msg)
     from emu_tpu_torch.models.emu1 import Emu1
 
     t0 = time.perf_counter()
     cpu = build_runner(full=True, device="cpu", seed=SEED, depth=2)
-    gpu_model = Emu1(cpu.cfg, _tree_to(cpu.model.tree(), "cuda",
-                                       torch.bfloat16))
+    gpu_model = Emu1(cpu.cfg, cast_tree(cpu.model.tree(), "cuda",
+                                        torch.bfloat16))
     gpu = Emu1Runner(gpu_model, cpu.cfg, cpu.tokenizer)
     prompt = cpu.caption_prompt()
     ref = cpu.next_token_logits([image], prompt, system=image_system_msg)
@@ -248,6 +331,128 @@ def run_full(card: str, images) -> None:
           f" GiB")
 
 
+def check_emu2_two_layer(card: str, image) -> None:
+    """Phase 6: the same 2-layer full-width Emu2-Chat weights, card vs CPU
+    (fp32, plain twins), bf16 and int4. Limits stated before the first run:
+    max |logit error| <= 0.05 * max|ref| (bf16), 0.08 * max|ref| (int4)."""
+    import torch
+    from emu_tpu_torch.bridge import cast_tree
+    from emu_tpu_torch.pipelines.chat import EmuChatGeneration
+
+    t0 = time.perf_counter()
+    cpu = EmuChatGeneration.from_config(instruct=True, seed=SEED,
+                                        device="cpu", depth=2)
+    request = [image, "Describe the image in one sentence."]
+    print(f"  2-layer full-width Emu2-Chat built on the CPU in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for mode, rtol in ((None, 0.05), ("int4", 0.08)):
+        t0 = time.perf_counter()
+        ref_pipe = (cpu if mode is None else
+                    EmuChatGeneration(cpu.params, cpu.cfg, cpu.tokenizer,
+                                      quantize=mode))
+        ref = ref_pipe.next_token_logits(request)
+        gpu = EmuChatGeneration(cast_tree(ref_pipe.params, "cuda",
+                                          torch.bfloat16),
+                                cpu.cfg, cpu.tokenizer)
+        got = gpu.next_token_logits(request)
+        print(f"  {mode or 'bf16'}: vocab {ref.shape[-1]}, "
+              f"{time.perf_counter() - t0:.1f} s")
+        compare(f"emu2_logits_2layer_card_{mode or 'bf16'}_vs_cpu_fp32",
+                got.cpu(), ref, atol=0.0, rtol=rtol)
+        print(f"  argmax agrees: {int(got.float().argmax()) == int(ref.argmax())}")
+        del gpu, ref_pipe
+        torch.cuda.empty_cache()
+
+
+def run_emu2_full(card: str, images) -> None:
+    """Phase 7: full-depth Emu2-Chat, int4 decoder and W8A8 tower."""
+    import torch
+    from emu_tpu_torch.pipelines.chat import EmuChatGeneration
+
+    t0 = time.perf_counter()
+    chat = EmuChatGeneration.from_config(instruct=True, seed=SEED,
+                                         device="cuda", quantize="int4")
+    torch.cuda.synchronize()
+    print(f"  built full Emu2-Chat int4 on the card in "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    vocab = chat.cfg.llama.extended_vocab_size
+    requests = [
+        ("1 image + question, beam 5", [images[0], "What is shown here?"]),
+        ("2-turn chat, 2 images, beam 5",
+         [[images[1], "What is in this picture?"], ["A cat on a sofa."],
+          [images[2], "How does this one differ from the first?"]]),
+        ("8-frame video, beam 5",
+         ["[VIDEO]", *images[:8], "[/VIDEO]", "What happens in the video?"]),
+        ("text only, beam 5", [["Write one sentence about the sea."]]),
+    ]
+    for label, req in requests:
+        torch.cuda.reset_peak_memory_stats()
+        ids = chat.generate_ids([req], max_new_tokens=MAX_NEW)
+        assert ids.shape == (1, MAX_NEW) and int(ids.max()) < vocab
+        st = chat.last_stats
+        steps = max(st["decode_steps"], 1)
+        print(f"  {label}: images={st['images']} frames={st['frames']} "
+              f"prompt={st['prompt_len']} encode {st['encode_s'] * 1e3:.1f} ms,"
+              f" prefill {st['prefill_s'] * 1e3:.1f} ms, decode "
+              f"{st['decode_s'] * 1e3 / steps:.2f} ms/step over {steps} steps,"
+              f" peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB  "
+              f"[{card}]")
+        text = chat.tokenizer.batch_decode(ids.cpu().numpy())[0]
+        print(f"    -> {text[:120]!r}")
+    logits = chat.next_token_logits(requests[0][1])
+    assert logits.shape == (1, vocab) and bool(torch.isfinite(logits).all())
+    print("  outputs finite")
+
+
+KERNELS = [  # name, source, replaces, wrapper, checks (first one timed)
+    ("attention", "emu_tpu_torch/csrc/attention.cu",
+     "emu_tpu/ops/flash_attention.py:487", "A.attention",
+     ["attention_vit_8x16x257x88", "attention_causal_8x40x80x128",
+      "attention_vit_1x16x1025x112"]),
+    ("fused_mlp", "emu_tpu_torch/csrc/fused_mlp.cu",
+     "emu_tpu/ops/fused_mlp.py:357", "B.fused_mlp",
+     ["fused_mlp_2056x1408x6144", "fused_mlp_257x1408x6144",
+      "fused_mlp_post_1025x1792x15360", "fused_mlp_post_2050x1792x15360"]),
+    ("add_rmsnorm", "emu_tpu_torch/csrc/rmsnorm.cu",
+     "emu_tpu/ops/fused_norm.py:100", "C.rmsnorm_fwd",
+     ["add_rmsnorm_640x5120", "add_rmsnorm_8x5120", "rms_norm_640x5120",
+      "rms_norm_8x5120", "add_rmsnorm_330x6656", "add_rmsnorm_5x6656"]),
+    ("decode_attention", "emu_tpu_torch/csrc/decode_attention.cu",
+     "emu_tpu/ops/decode_attention.py:166", "D.decode_attention",
+     ["decode_attention_b8_40x256x128", "decode_attention_b5_40x256x128",
+      "decode_attention_b5_52x384x128"]),
+    ("fused_mlp_w8a8", "emu_tpu_torch/csrc/fused_mlp_w8a8.cu",
+     "emu_tpu/ops/fused_mlp.py:194", "B.fused_mlp_w8a8",
+     ["fused_mlp_w8a8_post_2050x1792x15360",
+      "fused_mlp_w8a8_post_4100x1792x15360",
+      "fused_mlp_w8a8_pre_2050x1792x15360",
+      "fused_mlp_w8a8_pre_4100x1792x15360"]),
+    ("matmul_q4", "emu_tpu_torch/csrc/q4_matmul.cu",
+     "emu_tpu/ops/q4_matmul.py:91", "Q4.matmul_q4",
+     ["matmul_q4_qkv_5x6656x19968", "matmul_q4_lm_head_5x6656x32274",
+      "matmul_q4_gate_up_330x6656x35840"]),
+    ("fused_swiglu_q4", "emu_tpu_torch/csrc/q4_matmul.cu",
+     "emu_tpu/ops/q4_matmul.py:295", "Q4.fused_swiglu_q4",
+     ["fused_swiglu_q4_5x6656x17920", "fused_swiglu_q4_1x6656x17920"]),
+]
+
+
+def drive(label: str, wrappers: dict, needed, fn, *args) -> dict:
+    """Run one main path with every launch count set to 0 just before and
+    read just after; fail if a kernel of the path was not launched."""
+    for w in wrappers.values():
+        w.launches = 0
+    fn(*args)
+    counts = {n: w.launches for n, w in wrappers.items()}
+    print(f"  launches in the {label} path: {counts}")
+    for n in needed:
+        if counts[n] <= 0:
+            raise AssertionError(f"kernel {n} was not launched in the {label}"
+                                 " path")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -271,7 +476,14 @@ def main() -> int:
     from emu_tpu_torch.ops import flash_attention as A
     from emu_tpu_torch.ops import fused_mlp as B
     from emu_tpu_torch.ops import fused_norm as C
+    from emu_tpu_torch.ops import q4_matmul as Q4
+    mods = {"A": A, "B": B, "C": C, "D": D, "Q4": Q4}
+    wrappers = {}
+    for name, _, _, ref, _ in KERNELS:
+        mod, attr = ref.split(".")
+        wrappers[name] = getattr(mods[mod], attr)
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f"[1] card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -282,7 +494,7 @@ def main() -> int:
     print(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
           f"({_cuda.library_path().relative_to(ROOT)})")
 
-    print("[3] kernels vs plain twins (bf16, slice shapes)")
+    print("[3] kernels vs plain twins (bf16, the paths' shapes)")
     res = check_kernels(card)
 
     rng = np.random.RandomState(SEED)
@@ -291,39 +503,34 @@ def main() -> int:
     print("[4] 2-layer full-width Emu1: card bf16 vs CPU fp32")
     check_two_layer(card, images[0])
 
+    launches = {n: 0 for n in wrappers}
+
+    def count(counts):
+        for n, c in counts.items():
+            launches[n] += c
+
     print("[5] full-depth Emu1 through Emu1Runner")
-    wrappers = [A.attention, B.fused_mlp, C.rmsnorm_fwd, D.decode_attention]
-    for w in wrappers:
-        w.launches = 0
-    run_full(card, images)
-    launches = {w.__name__: w.launches for w in wrappers}
-    print(f"  launches in the main path: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched")
+    count(drive("Emu1 caption", wrappers,
+                ["attention", "fused_mlp", "add_rmsnorm", "decode_attention"],
+                run_full, card, images))
+    print("[6] 2-layer full-width Emu2-Chat: card (bf16, int4) vs CPU fp32")
+    count(drive("Emu2 2-layer bf16 and int4", wrappers,
+                ["attention", "fused_mlp", "add_rmsnorm", "matmul_q4"],
+                check_emu2_two_layer, card, images[0]))
+    print("[7] full-depth Emu2-Chat int4 through EmuChatGeneration")
+    count(drive("Emu2-Chat int4", wrappers,
+                ["attention", "add_rmsnorm", "decode_attention",
+                 "fused_mlp_w8a8", "matmul_q4", "fused_swiglu_q4"],
+                run_emu2_full, card, images))
+    print(f"  total {time.perf_counter() - t_start:.1f} s")
 
-    def entry(name, source, replaces, wrapper, keys):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": wrapper.launches,
-                "max_abs_err": max(res[k]["max_abs_err"] for k in keys),
-                "ms": res[keys[0]]["ms"], "plain_ms": res[keys[0]]["plain_ms"]}
-
-    kernels = [
-        entry("attention", "emu_tpu_torch/csrc/attention.cu",
-              "emu_tpu/ops/flash_attention.py:487", A.attention,
-              ["attention_vit_8x16x257x88", "attention_causal_8x40x80x128"]),
-        entry("fused_mlp", "emu_tpu_torch/csrc/fused_mlp.cu",
-              "emu_tpu/ops/fused_mlp.py:357", B.fused_mlp,
-              ["fused_mlp_2056x1408x6144", "fused_mlp_257x1408x6144"]),
-        entry("add_rmsnorm", "emu_tpu_torch/csrc/rmsnorm.cu",
-              "emu_tpu/ops/fused_norm.py:100", C.rmsnorm_fwd,
-              ["add_rmsnorm_640x5120", "add_rmsnorm_8x5120",
-               "rms_norm_640x5120", "rms_norm_8x5120"]),
-        entry("decode_attention", "emu_tpu_torch/csrc/decode_attention.cu",
-              "emu_tpu/ops/decode_attention.py:166", D.decode_attention,
-              ["decode_attention_b8_40x256x128",
-               "decode_attention_b5_40x256x128"]),
-    ]
+    kernels = []
+    for name, source, replaces, _, keys in KERNELS:
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(res[k]["max_abs_err"] for k in keys),
+            "ms": res[keys[0]]["ms"], "plain_ms": res[keys[0]]["plain_ms"]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

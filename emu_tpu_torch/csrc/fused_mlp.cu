@@ -2,9 +2,13 @@
 // chip, out = x + fc2(gelu(fc1(LN(x))))  (pre-LN optional, residual optional)
 // bf16 in and out, fp32 LayerNorm, fp32 accumulation, exact erf GELU.
 //
-// Replaces the TPU kernel emu_tpu/ops/fused_mlp.py:fused_mlp (pre-LN, GELU,
-// residual form that layers.fused_block_mlp runs for every Emu1 ViT-g
-// block). Post-LN and SwiGLU (the Emu2 forms) are not built here yet.
+// Replaces the TPU kernel emu_tpu/ops/fused_mlp.py:fused_mlp in its GELU
+// forms: pre-LN + residual (every Emu1 ViT-g block) and post-LN + residual
+// (every bf16 Emu2 EVA-4B block: x + LN(fc2(gelu(fc1(x))))). SwiGLU is not
+// built here yet. Post-LN needs the whole output row: the main kernel runs
+// without a norm, and a row epilogue (rows_epilogue_kernel, int8_mma.cuh)
+// sums the splits in split order, adds b2, normalises in fp32 over N and
+// adds the residual.
 //
 // What bounds it on an H100: at ViT-g (M = B*257 rows, K = N = 1408,
 // F = 6144) the two products are 2*M*K*F*2 FLOPs. The point of fusing is
@@ -20,7 +24,9 @@
 // With 16 rows a block does little arithmetic per weight byte, so the
 // kernel is bound by how fast weights reach the SM: they stream through a
 // 3-slot shared-memory ring filled with coalesced 16-byte cp.async copies,
-// two chunks in flight while the tensor cores work on the third. The
+// two chunks in flight while the tensor cores work on the third (2 slots,
+// one in flight, where three [16, N] w2 chunks do not fit beside the
+// [16, K] row tile: EVA-4B's K = N = 1792). The
 // chunk sequence per 128-wide hidden step is ceil(K/128) chunks of w1
 // ([128 k-rows, 128 hidden cols]) then 8 chunks of w2 ([16 hidden rows,
 // N cols]).
@@ -40,6 +46,8 @@
 #include <mma.h>
 #include <math.h>
 
+#include "int8_mma.cuh"
+
 using namespace nvcuda;
 
 namespace {
@@ -53,7 +61,7 @@ constexpr int LDSCR = 20;    // fp32 scratch row stride
 constexpr int R1 = 128;      // w1 rows (of K) per chunk
 constexpr int R2 = 16;       // w2 rows (of F) per chunk
 constexpr int NK2 = BF / R2; // w2 chunks per hidden step
-constexpr int SLOTS = 3;
+constexpr int MAX_SMEM = 232448;  // bytes of shared memory a block may use
 
 struct MlpLayout {
   int ldx, ldh, ld1, ld2;
@@ -62,7 +70,9 @@ struct MlpLayout {
 
 __host__ __device__ inline size_t round128(size_t v) { return (v + 127) / 128 * 128; }
 
-__host__ __device__ inline MlpLayout mlp_layout(int K, int N) {
+// slots: weight-ring depth, 3 (two chunks in flight) or, where three
+// [16, N] w2 chunks do not fit (EVA-4B's N = 1792), 2.
+__host__ __device__ inline MlpLayout mlp_layout(int K, int N, int slots) {
   MlpLayout L;
   L.ldx = K + 8;
   L.ldh = BF + 8;
@@ -75,7 +85,7 @@ __host__ __device__ inline MlpLayout mlp_layout(int K, int N) {
   const size_t s1 = sizeof(__nv_bfloat16) * R1 * L.ld1;
   const size_t s2 = sizeof(__nv_bfloat16) * R2 * L.ld2;
   L.slot_bytes = round128(s1 > s2 ? s1 : s2);
-  L.ring_off = off; off += SLOTS * L.slot_bytes;
+  L.ring_off = off; off += slots * L.slot_bytes;
   L.total = off;
   return L;
 }
@@ -96,6 +106,7 @@ __device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\
 template <int N>
 __device__ inline void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
+template <int SLOTS>
 __global__ void __launch_bounds__(THREADS) fused_mlp_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ ln_s,
     const __nv_bfloat16* __restrict__ ln_b, const __nv_bfloat16* __restrict__ w1,
@@ -103,7 +114,7 @@ __global__ void __launch_bounds__(THREADS) fused_mlp_kernel(
     float* __restrict__ ws, int M, int K, int F, int N, float eps,
     int steps_per_split) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const MlpLayout L = mlp_layout(K, N);
+  const MlpLayout L = mlp_layout(K, N, SLOTS);
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + L.x_off);
   __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem + L.h_off);
   const int warp = threadIdx.x / 32;
@@ -150,8 +161,7 @@ __global__ void __launch_bounds__(THREADS) fused_mlp_kernel(
     cp_async_commit();        // an empty group past the end keeps the count
   };
 
-  issue(0);
-  issue(1);
+  for (int q = 0; q < SLOTS - 1; ++q) issue(q);
 
   // the row tile, LayerNorm'd in fp32 (two-pass mean/variance), as bf16
   for (int r = warp; r < BM; r += WARPS) {
@@ -301,15 +311,17 @@ extern "C" int emu_fused_mlp_splits(int M, int F) {
 // ws: an fp32 [splits, M, N] workspace that the caller allocates (no
 // zeroing needed: every element is stored once); splits as
 // emu_fused_mlp_splits(M, F) returns it.
+// ln_post: ln_s/ln_b normalise the output (post-LN) instead of the input.
 extern "C" int emu_fused_mlp_fwd(const void* x, const void* ln_s, const void* ln_b,
                                  const void* w1, const void* b1, const void* w2,
                                  const void* b2, void* ws, void* out, int M, int K,
                                  int F, int N, int splits, float eps, int residual,
-                                 void* stream) {
-  const MlpLayout L = mlp_layout(K, N);
+                                 int ln_post, void* stream) {
+  const bool deep = mlp_layout(K, N, 3).total <= MAX_SMEM;
+  const MlpLayout L = mlp_layout(K, N, deep ? 3 : 2);
+  auto kern = deep ? fused_mlp_kernel<3> : fused_mlp_kernel<2>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(L.total));
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L.total));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int row_tiles = (M + BM - 1) / BM;
   const int n_steps = (F + BF - 1) / BF;
@@ -321,13 +333,22 @@ extern "C" int emu_fused_mlp_fwd(const void* x, const void* ln_s, const void* ln
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fused_mlp_kernel<<<dim3(row_tiles, splits), THREADS, L.total, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(ln_s),
-      static_cast<const __nv_bfloat16*>(ln_b), static_cast<const __nv_bfloat16*>(w1),
+  const __nv_bfloat16* lns = static_cast<const __nv_bfloat16*>(ln_s);
+  const __nv_bfloat16* lnb = static_cast<const __nv_bfloat16*>(ln_b);
+  kern<<<dim3(row_tiles, splits), THREADS, L.total, s>>>(
+      static_cast<const __nv_bfloat16*>(x), ln_post ? nullptr : lns,
+      lnb, static_cast<const __nv_bfloat16*>(w1),
       static_cast<const __nv_bfloat16*>(b1), static_cast<const __nv_bfloat16*>(w2),
       static_cast<float*>(ws), M, K, F, N, eps, steps_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (ln_post) {
+    rows_epilogue_kernel<<<M, 256, 0, s>>>(
+        static_cast<const float*>(ws), splits, M, N, static_cast<const __nv_bfloat16*>(b2),
+        lns, lnb, eps, residual ? static_cast<const __nv_bfloat16*>(x) : nullptr,
+        static_cast<__nv_bfloat16*>(out));
+    return static_cast<int>(cudaGetLastError());
+  }
   const long long total = static_cast<long long>(M) * N;
   const int blocks = static_cast<int>((total + 255) / 256 < 4 * sms ? (total + 255) / 256 : 4 * sms);
   mlp_epilogue_kernel<<<blocks, 256, 0, s>>>(

@@ -11,6 +11,9 @@ and the step then commits all layers' rows with one copy per plane.
 Both norms of every layer run through kernel C at every row count; the
 final norm keeps HF semantics (`layers.rms_norm`), as in the JAX package.
 Prefill attention runs kernel A in causal mode at every prompt length.
+With int4 weights on the fused layout, decode-shaped batches (<= 32 rows)
+run the whole MLP residual branch as kernel G (`q4_matmul.swiglu_q4_plan`),
+and the int4 projections at <= 1024 rows run kernel F (`layers.dense`).
 """
 
 from __future__ import annotations
@@ -26,28 +29,38 @@ from emu_tpu_torch.ops import layers as L
 from emu_tpu_torch.ops import rope as R
 from emu_tpu_torch.ops.attention import cache_attention, dot_product_attention
 from emu_tpu_torch.ops.fused_norm import add_rmsnorm, rms_norm_fused
+from emu_tpu_torch.ops.q4_matmul import fused_swiglu_q4, swiglu_q4_plan
 
 
-def init(cfg: LlamaConfig, init: L.Init, with_regress_head: bool = False
-         ) -> dict:
+def init(cfg: LlamaConfig, init: L.Init, with_regress_head: bool = False,
+         fused: bool = False, quant=None) -> dict:
+    """Random params. fused=True draws the `fuse_projections` layout
+    (qkv_proj, gate_up) directly; quant ("int8", "int4") builds every
+    projection and the lm_head already quantized, one layer at a time."""
     d, n, f = cfg.hidden_size, cfg.num_hidden_layers, cfg.intermediate_size
     kvd = cfg.kv_heads * cfg.head_dim
 
     def lin(i, o):
-        return init.dense(n, in_dim=i, out_dim=o, bias=False)
+        return init.dense(n, in_dim=i, out_dim=o, bias=False, quant=quant)
 
+    if fused:
+        attn = {"qkv_proj": lin(d, d + 2 * kvd), "o_proj": lin(d, d)}
+        mlp = {"gate_up": lin(d, 2 * f), "down": lin(f, d)}
+    else:
+        attn = {"q_proj": lin(d, d), "k_proj": lin(d, kvd),
+                "v_proj": lin(d, kvd), "o_proj": lin(d, d)}
+        mlp = {"gate": lin(d, f), "up": lin(d, f), "down": lin(f, d)}
     params = {
         "embed_tokens": init.normal(cfg.extended_vocab_size, d),
         "layers": {
             "input_layernorm": init.ones(n, d),
             "post_attention_layernorm": init.ones(n, d),
-            "self_attn": {"q_proj": lin(d, d), "k_proj": lin(d, kvd),
-                          "v_proj": lin(d, kvd), "o_proj": lin(d, d)},
-            "mlp": {"gate": lin(d, f), "up": lin(d, f), "down": lin(f, d)},
+            "self_attn": attn,
+            "mlp": mlp,
         },
         "norm": init.ones(d),
         "lm_head": init.dense(in_dim=d, out_dim=cfg.extended_vocab_size,
-                              bias=False),
+                              bias=False, quant=quant),
     }
     if with_regress_head:
         params["stu_regress_head"] = init.dense(in_dim=d, out_dim=d,
@@ -68,9 +81,24 @@ def rope_tables(cfg: LlamaConfig, max_len: int, device) -> Tuple:
 
 def fuse_projections(params: dict) -> dict:
     """q/k/v → one `qkv_proj` and gate/up → one `gate_up` matmul per layer
-    (column concatenation, numerically exact; fewer launches per step)."""
+    (column concatenation, numerically exact; fewer launches per step).
+    Every dense form concatenates on the output axis: float, int8
+    weight-only, W8A8 and int4 (with a bias, if any)."""
+    keysets = (("kernel",), ("kernel_q8", "scale"), ("kernel_w8a8", "scale"),
+               ("kernel_q4", "scale4"))
+
     def cat(parts):
-        return {"kernel": torch.cat([p["kernel"] for p in parts], dim=-1)}
+        for keys in keysets:
+            if keys[0] in parts[0]:
+                if "bias" in parts[0]:
+                    keys = keys + ("bias",)
+                extra = set(parts[0]) - set(keys)
+                if extra:
+                    raise ValueError(
+                        f"fuse_projections: unfusable extra entries {extra}")
+                return {k: torch.cat([p[k] for p in parts], dim=-1)
+                        for k in keys}
+        raise ValueError(f"unrecognized dense params: {list(parts[0])}")
 
     layers = dict(params["layers"])
     sa, mlp = dict(layers["self_attn"]), dict(layers["mlp"])
@@ -101,8 +129,14 @@ def _layer(p, cfg: LlamaConfig, x, rope_rows, attend):
     q, k, v = _qkv(p["self_attn"], cfg, h, rope_rows)
     b, s = x.shape[:2]
     o = attend(q, k, v).reshape(b, s, -1)
-    x, h = add_rmsnorm(p["post_attention_layernorm"], x,
-                       L.dense(p["self_attn"]["o_proj"], o), cfg.rms_norm_eps)
+    attn_out = L.dense(p["self_attn"]["o_proj"], o)
+    if swiglu_q4_plan(p["post_attention_layernorm"], p["mlp"], x):
+        gu, dn = p["mlp"]["gate_up"], p["mlp"]["down"]
+        return fused_swiglu_q4(x + attn_out, p["post_attention_layernorm"],
+                               gu["kernel_q4"], gu["scale4"], dn["kernel_q4"],
+                               dn["scale4"], eps=cfg.rms_norm_eps)
+    x, h = add_rmsnorm(p["post_attention_layernorm"], x, attn_out,
+                       cfg.rms_norm_eps)
     return x + L.llama_mlp(p["mlp"], h)
 
 

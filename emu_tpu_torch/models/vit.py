@@ -8,8 +8,11 @@ block output [B, n_patch + 1, width].
 Plain blocks (no RoPE, no rel-pos bias, no sub-LN) run their attention
 through kernel A on head-major views of the qkv projection, q/v biases
 inside the kernel (`_fused_attn_branch`), and their MLP residual branch
-through kernel B (`layers.fused_block_mlp`). The other variants take plain
-torch, as they take XLA in the JAX package.
+through kernel B, or kernel E for W8A8 weights at >= 2048 rows
+(`layers.fused_block_mlp`). The other variants take plain torch, as they
+take XLA in the JAX package. W8A8 towers (`quant.quantize_model_params`)
+quantize the qkv and proj activations per token, as the JAX branch's
+`einsum_w8a8` does.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from emu_tpu.config import VisionConfig
 from emu_tpu_torch.bridge import layer
 from emu_tpu_torch.ops import layers as L
+from emu_tpu_torch.ops import quant as Q
 from emu_tpu_torch.ops import rope as R
 from emu_tpu_torch.ops.attention import dot_product_attention
 from emu_tpu_torch.ops.flash_attention import mha_bhsd
@@ -44,7 +48,9 @@ def relative_position_index(grid: int) -> np.ndarray:
     return idx
 
 
-def init(cfg: VisionConfig, init: L.Init) -> dict:
+def init(cfg: VisionConfig, init: L.Init, quant=None) -> dict:
+    """Random params; quant="w8a8" builds the blocks' matmul kernels (the
+    JAX package's VIT_PATTERNS) already quantized, one layer at a time."""
     w, n = cfg.width, cfg.layers
     ahd = cfg.num_heads * cfg.head_width
     hidden = cfg.mlp_hidden
@@ -52,23 +58,26 @@ def init(cfg: VisionConfig, init: L.Init) -> dict:
         "norm1": init.layer_norm(n, dim=w),
         "norm2": init.layer_norm(n, dim=w),
         "attn": {
-            "qkv": {"kernel": init.normal(n, w, 3 * ahd)},
+            "qkv": init.dense(n, in_dim=w, out_dim=3 * ahd, bias=False,
+                              quant=quant),
             "q_bias": init.zeros(n, ahd),
             "v_bias": init.zeros(n, ahd),
-            "proj": init.dense(n, in_dim=ahd, out_dim=w),
+            "proj": init.dense(n, in_dim=ahd, out_dim=w, quant=quant),
         },
     }
     if cfg.subln:
         blocks["attn"]["inner_ln"] = init.layer_norm(n, dim=ahd)
     if cfg.naiveswiglu:
-        blocks["mlp"] = {"w1": init.dense(n, in_dim=w, out_dim=hidden),
-                         "w2": init.dense(n, in_dim=w, out_dim=hidden),
-                         "w3": init.dense(n, in_dim=hidden, out_dim=w)}
+        blocks["mlp"] = {
+            "w1": init.dense(n, in_dim=w, out_dim=hidden, quant=quant),
+            "w2": init.dense(n, in_dim=w, out_dim=hidden, quant=quant),
+            "w3": init.dense(n, in_dim=hidden, out_dim=w, quant=quant)}
         if cfg.subln:
             blocks["mlp"]["ffn_ln"] = init.layer_norm(n, dim=hidden)
     else:
-        blocks["mlp"] = {"fc1": init.dense(n, in_dim=w, out_dim=hidden),
-                         "fc2": init.dense(n, in_dim=hidden, out_dim=w)}
+        blocks["mlp"] = {
+            "fc1": init.dense(n, in_dim=w, out_dim=hidden, quant=quant),
+            "fc2": init.dense(n, in_dim=hidden, out_dim=w, quant=quant)}
     if cfg.ls_init_value is not None:
         blocks["gamma_1"] = init.ones(n, w) * cfg.ls_init_value
         blocks["gamma_2"] = init.ones(n, w) * cfg.ls_init_value
@@ -99,13 +108,27 @@ def _fused_attn_branch(cfg: VisionConfig, p: dict, x, g1):
     b, s, _ = x.shape
     h, d = cfg.num_heads, cfg.head_width
 
+    def project(src, params):
+        """x @ W without bias, rounded once; W8A8 per token."""
+        if "kernel_w8a8" in params:
+            return Q.matmul_w8a8(src, params["kernel_w8a8"], params["scale"])
+        return torch.matmul(src, params["kernel"].to(src.dtype))
+
     def attn_out(src):
-        qkv = torch.matmul(src, pa["qkv"]["kernel"].to(src.dtype))
+        qkv = project(src, pa["qkv"])
         q, k, v = qkv.view(b, s, 3, h, d).unbind(2)
         o = mha_bhsd(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                      pa["q_bias"].view(h, d), pa["v_bias"].view(h, d),
                      scale=d ** -0.5)
-        return L.dense(pa["proj"], o.transpose(1, 2).reshape(b, s, h * d))
+        o = o.transpose(1, 2).reshape(b, s, h * d)
+        if "kernel_w8a8" not in pa["proj"]:
+            return L.dense(pa["proj"], o)
+        # the W8A8 product rounds to the activation dtype before the fp32
+        # bias add, as the JAX branch's einsum_w8a8 does
+        y = project(o, pa["proj"])
+        if "bias" in pa["proj"]:
+            y = (y.float() + pa["proj"]["bias"].float()).to(y.dtype)
+        return y
 
     if cfg.postnorm:
         y = L.layer_norm(p["norm1"], attn_out(x), cfg.ln_eps)
@@ -149,8 +172,10 @@ def _block(cfg: VisionConfig, p: dict, x, rope_tables=None,
         return y if g is None else y * g.to(y.dtype)
 
     g1, g2 = p.get("gamma_1"), p.get("gamma_2")
+    plain_forms = all(("kernel" in p["attn"][n] or "kernel_w8a8" in p["attn"][n])
+                      for n in ("qkv", "proj"))
     if (rope_tables is None and rel_pos_bias is None
-            and "inner_ln" not in p["attn"]):
+            and "inner_ln" not in p["attn"] and plain_forms):
         x = _fused_attn_branch(cfg, p, x, g1)
     elif cfg.postnorm:
         x = x + scaled(L.layer_norm(p["norm1"], attn(x), cfg.ln_eps), g1)
@@ -158,8 +183,10 @@ def _block(cfg: VisionConfig, p: dict, x, rope_tables=None,
         x = x + scaled(attn(L.layer_norm(p["norm1"], x, cfg.ln_eps)), g1)
 
     if g2 is None and "ffn_ln" not in p["mlp"]:
-        return L.fused_block_mlp(p["norm2"], p["mlp"], x, cfg.ln_eps,
-                                 cfg.postnorm)
+        y = L.fused_block_mlp(p["norm2"], p["mlp"], x, cfg.ln_eps,
+                              cfg.postnorm)
+        if y is not None:
+            return y
     if cfg.postnorm:
         return x + scaled(L.layer_norm(p["norm2"], mlp(x), cfg.ln_eps), g2)
     return x + scaled(mlp(L.layer_norm(p["norm2"], x, cfg.ln_eps)), g2)

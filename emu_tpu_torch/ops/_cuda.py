@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every `.cu` file under `emu_tpu_torch/csrc/` is compiled by `nvcc` for
-Hopper (`sm_90a`) into ONE shared library with a plain C interface, loaded
-with `ctypes`. The library is built at first use into
+Every `.cu` file under `emu_tpu_torch/csrc/` is compiled by its own `nvcc`
+for Hopper (`sm_90a`), all of them at once, and the objects are linked into
+ONE shared library with a plain C interface, loaded with `ctypes`. The library is built at first use into
 `build/emu_tpu_torch/<hash>/` at the root of the checkout, keyed by a hash
 of the sources and flags, so an edited kernel rebuilds and an unchanged one
 loads in milliseconds. Nothing here runs at import time: this module is
@@ -25,17 +25,31 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "emu_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "emu_attention_fwd": [_P] * 7 + [_L] * 12 + [_I] * 6 + [_F, _I, _P],
     "emu_fused_mlp_splits": [_I, _I],
-    "emu_fused_mlp_fwd": [_P] * 9 + [_I] * 5 + [_F, _I, _P],
+    "emu_fused_mlp_fwd": [_P] * 9 + [_I] * 5 + [_F, _I, _I, _P],
+    "emu_fused_mlp_w8a8_fwd": [_P] * 9 + [_I, _I, _F] + [_P] * 7 + [_I] * 5
+                              + [_P],
+    "emu_w4a8_splits": [_I] * 4,
+    "emu_matmul_q4_fwd": [_P] * 8 + [_I] * 4 + [_P],
+    "emu_fused_swiglu_q4_fwd": [_P] * 13 + [_I] * 6 + [_F, _I, _P],
     "emu_add_rmsnorm_fwd": [_P] * 6 + [_I, _I, _F, _P],
     "emu_decode_attention_fwd": [_P, _L, _P, _P, _P, _P, _L, _P, _L, _P]
                                 + [_I] * 5 + [_L, _F, _P],
 }
+
+
+def on_cpu(t, name: str) -> bool:
+    """True for a CPU tensor (the wrapper runs its plain twin); False for a
+    CUDA tensor (the wrapper launches its kernel); raises otherwise."""
+    if t.device.type == "cpu":
+        return True
+    require(t.device.type == "cuda", f"{name}: unsupported device {t.device}")
+    return False
 
 
 def _nvcc() -> str:
@@ -58,19 +72,39 @@ def library_path() -> Path:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile the kernels unless this exact build exists; returns the .so."""
+    """Compile the kernels unless this exact build exists; returns the .so.
+    One nvcc per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out.parent / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj), str(src)]
+        jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for obj, proc in jobs:
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{obj.name} ({proc.returncode}):\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = out.with_name(f"{out.name}.{tag}")
+    res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                          *(str(obj) for obj, _ in jobs)],
+                         capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr}")
     if verbose:
-        print(res.stderr, end="")
+        print("".join(logs), end="")
+    for obj, _ in jobs:
+        obj.unlink()
     os.replace(tmp, out)
     return out
 

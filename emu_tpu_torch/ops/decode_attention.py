@@ -42,12 +42,10 @@ def decode_attention(q, k, v, kv_valid, *, scale: float,
     `layer`, or [B, Hkv, S, D] without; kv_valid [B, S] (nonzero =
     attend; must exclude the current slot when k_new is given); k_new/v_new
     [B, Hkv, 1, D] or None. → [B, 1, H, D]."""
-    if q.device.type == "cpu":
+    if _cuda.on_cpu(q, "decode_attention"):
         return decode_attention_reference(q, k, v, kv_valid, scale=scale,
                                           layer=layer, k_new=k_new,
                                           v_new=v_new)
-    _cuda.require(q.device.type == "cuda",
-                  f"decode_attention: unsupported device {q.device}")
     if layer is None:
         k, v, layer = k[None], v[None], 0
     n_layers, b, hkv, s, d = k.shape

@@ -51,11 +51,9 @@ def attention(q, k, v, q_bias=None, v_bias=None, *,
     The causal mask is aligned to the end of the keys (query i sees key j
     iff j <= i + Skv - Sq). On CUDA the output's memory is [B, Sq, H, D],
     returned as its [B, H, Sq, D] view."""
-    if q.device.type == "cpu":
+    if _cuda.on_cpu(q, "attention"):
         return attention_reference(q, k, v, q_bias, v_bias, kv_valid=kv_valid,
                                    scale=scale, causal=causal)
-    _cuda.require(q.device.type == "cuda",
-                  f"attention: unsupported device {q.device}")
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     _cuda.require(q.dtype == k.dtype == v.dtype == torch.bfloat16,

@@ -31,10 +31,8 @@ def rmsnorm_reference(w, x, r=None, eps: float = 1e-6):
 
 def rmsnorm_fwd(w, x, r=None, eps: float = 1e-6):
     """(y, h, rsigma) for x/r [..., W] and w [W]; y is x when r is None."""
-    if x.device.type == "cpu":
+    if _cuda.on_cpu(x, "rmsnorm"):
         return rmsnorm_reference(w, x, r, eps)
-    _cuda.require(x.device.type == "cuda",
-                  f"rmsnorm: unsupported device {x.device}")
     wd = x.shape[-1]
     bf = torch.bfloat16
     _cuda.require(x.dtype == bf and (r is None or r.dtype == bf),

@@ -1,0 +1,257 @@
+"""EmuChatGeneration: the Emu2 multimodal chat API, as
+`emu_tpu/pipelines/chat.py`: plain (`List[str | Image]`) and chat
+(`List[List[str | Image]]`) inputs, USER/ASSISTANT role alternation with
+`</s>` between turns, the system message, the grounding suffix,
+`[VIDEO]`/`[/VIDEO]` spans whose frames become `[gIMG]` placeholders,
+bicubic-448 host preprocessing, and the reference's generation defaults
+(beam 5, length_penalty -1, prompts padded to a multiple of 64).
+
+`quantize="int8" | "int4"` is the serving recipe (decoder weight-only,
+vision tower W8A8; `ops.quant.quantize_model_params`). With int4 on a
+CUDA card the decoder runs kernels F and G and the tower kernel E at two
+or more images. `from_config(device="cuda", quantize="int4")` builds the
+full Emu2-Chat with random weights on one card, quantized one layer at a
+time.
+
+Not ported: `preprocess_mode="device"` (raises NotImplementedError), mesh
+sharding and `multito`/`multicuda`, `embed_inputs` (the continuous
+engine's admission unit), sampling and contrastive search (the engine
+raises NotImplementedError).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from emu_tpu import tokenization as T
+from emu_tpu.config import Emu2Config
+from emu_tpu_torch.generation.engine import GenerationConfig, synced_clock
+from emu_tpu_torch.models import emu2, llama
+from emu_tpu_torch.ops.layers import Init
+from emu_tpu_torch.ops.quant import quantize_model_params
+from emu_tpu_torch.pipelines import preprocess
+
+
+def with_depth(cfg: Emu2Config, depth: int) -> Emu2Config:
+    """The same widths with the tower and the decoder cut to `depth`."""
+    return dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, layers=depth),
+        llama=dataclasses.replace(cfg.llama, num_hidden_layers=depth))
+
+
+class EmuChatGeneration:
+    def __init__(self, params: dict, cfg: Emu2Config,
+                 tokenizer: Optional[T.EmuTokenizer] = None,
+                 fuse: bool = True, quantize: Optional[str] = None,
+                 preprocess_mode: str = "host"):
+        """params: the JAX package's Emu2 tree as torch tensors. fuse=True
+        rewrites the decoder to the fused qkv_proj/gate_up layout (exact);
+        quantize: None | "int8" | "int4" (already-quantized leaves pass)."""
+        if preprocess_mode == "device":
+            raise NotImplementedError(
+                "preprocess_mode='device' is still to port")
+        if preprocess_mode != "host":
+            raise ValueError(f"preprocess_mode {preprocess_mode!r}")
+        if fuse and "q_proj" in params["decoder"]["layers"]["self_attn"]:
+            params = dict(params,
+                          decoder=llama.fuse_projections(params["decoder"]))
+        if quantize:
+            params = quantize_model_params(params, quantize)
+        self.cfg = cfg
+        self.model = emu2.Emu2(cfg, params)
+        self.tokenizer = tokenizer or T.EmuTokenizer.emu2(
+            instruct=cfg.instruct)
+        self.image_placeholder = T.IMG + T.IMAGE * cfg.n_query + T.IMG_END
+        self.video_placeholder = T.IMG + T.GIMG * cfg.v_query + T.IMG_END
+        # the tower computes in its images' dtype: feed it patch_embed's
+        # (never quantized)
+        kernel = params["visual"]["patch_embed"]["kernel"]
+        self.device, self._img_dtype = kernel.device, kernel.dtype
+        self.last_stats: dict = {}
+
+    @classmethod
+    def from_config(cls, instruct: bool = False, seed: int = 0, dtype=None,
+                    device="cpu", depth: Optional[int] = None,
+                    quantize: Optional[str] = None,
+                    **kwargs) -> "EmuChatGeneration":
+        """Random weights drawn on `device` from `seed` (n_query 256 for
+        instruct, 64 for base), in bf16 on CUDA and fp32 on the CPU unless
+        `dtype` says otherwise; depth cuts the tower and the decoder."""
+        cfg = Emu2Config.chat() if instruct else Emu2Config()
+        if depth is not None:
+            cfg = with_depth(cfg, depth)
+        device = torch.device(device)
+        dtype = dtype or (torch.bfloat16 if device.type == "cuda"
+                          else torch.float32)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        tree = emu2.init(cfg, Init(device=device, dtype=dtype, generator=gen),
+                         quantize=quantize)
+        return cls(tree, cfg, quantize=quantize, **kwargs)
+
+    @property
+    def params(self) -> dict:
+        return self.model.tree()
+
+    # -- input assembly ------------------------------------------------------
+
+    def _preprocess(self, image):
+        return preprocess.preprocess_image(image, self.cfg.vision.image_size)
+
+    def _prepare_inputs(self, inputs):
+        is_video = False
+        text, images, videos = "", [], []
+        for x in inputs:
+            if x == T.FAKE_VIDEO_END:
+                is_video = False
+            elif isinstance(x, str):
+                if x == T.VIDEO:
+                    is_video = True
+                text += x
+            elif is_video:
+                text += T.VID_PLACEHOLDER
+                videos.append(self._preprocess(x))
+            else:
+                text += T.IMG_PLACEHOLDER
+                images.append(self._preprocess(x))
+        return text, images, videos
+
+    def _prepare_chat_inputs(self, inputs, is_grounding: bool):
+        text = (T.GROUND_SYSTEM_MESSAGE if is_grounding
+                else T.SYSTEM_MESSAGE)
+        images, videos = [], []
+        prev = None
+        for msg in inputs:
+            if prev == T.ASSISTANT:
+                text += f"{T.EOS}{T.USER}: "
+                prev = T.USER
+            elif prev is None:
+                text += f" {T.USER}: "
+                prev = T.USER
+            else:
+                text += f" {T.ASSISTANT}: "
+                prev = T.ASSISTANT
+            t, im, vid = self._prepare_inputs(msg)
+            text += t
+            images += im
+            videos += vid
+        text += f" {T.ASSISTANT}:"
+        if is_grounding:
+            text += T.GRD
+        return text, images, videos
+
+    def _assemble_batch(self, batch_inputs: List[List], is_grounding: bool):
+        """Conversations → (prompt texts, image arrays, video arrays)."""
+        texts, images, videos = [], [], []
+        for inputs in batch_inputs:
+            if not isinstance(inputs, list):
+                raise TypeError("each conversation is a list")
+            if inputs and isinstance(inputs[0], list):
+                if len(inputs) % 2 != 1:
+                    raise ValueError("last message must be user input")
+                text, im, vid = self._prepare_chat_inputs(inputs,
+                                                          is_grounding)
+            else:
+                text, im, vid = self._prepare_inputs(inputs)
+            text = text.replace(T.IMG_PLACEHOLDER, self.image_placeholder)
+            text = text.replace(T.VID_PLACEHOLDER, self.video_placeholder)
+            texts.append(text)
+            images += im
+            videos += vid
+        return texts, images, videos
+
+    def _image_batch(self, arrs):
+        return torch.from_numpy(np.stack(arrs)).to(self.device,
+                                                   self._img_dtype)
+
+    def _encode_visuals(self, images, videos):
+        image_embeds = video_embeds = None
+        if images:
+            e = self.model.encode_image_lm(self._image_batch(images),
+                                           self.cfg.n_query)
+            image_embeds = e.reshape(-1, e.shape[-1])
+        if videos:
+            e = self.model.encode_image_lm(self._image_batch(videos),
+                                           self.cfg.v_query)
+            video_embeds = e.reshape(-1, e.shape[-1])
+        return image_embeds, video_embeds
+
+    # -- generation ----------------------------------------------------------
+
+    def __call__(self, inputs: List, **kwargs) -> str:
+        return self.generate_batch([inputs], **kwargs)[0]
+
+    def generate_batch(self, batch_inputs: List[List],
+                       is_grounding: bool = False,
+                       skip_special_tokens: bool = True, **kwargs) -> List[str]:
+        """Several independent conversations as one left-padded batch →
+        the decoded answers; kwargs as `generate_ids`."""
+        ids = self.generate_ids(batch_inputs, is_grounding, **kwargs)
+        return self.tokenizer.batch_decode(ids.cpu().numpy(),
+                                           skip_special_tokens)
+
+    @torch.inference_mode()
+    def generate_ids(self, batch_inputs: List[List], is_grounding=False,
+                     num_beams: int = 5, max_new_tokens: int = 10,
+                     min_len: int = 1, do_sample: bool = False,
+                     penalty_alpha=None, top_p=None, top_k=None,
+                     temperature=None, length_penalty: float = -1.0,
+                     repetition_penalty: float = 1.0) -> torch.Tensor:
+        """Several conversations as one left-padded batch → new token ids
+        [B, max_new_tokens], with the reference's defaults (beam 5,
+        length_penalty -1). Timings of the call (encode_s, prefill_s,
+        decode_s, decode_steps) land in `last_stats`."""
+        texts, images, videos = self._assemble_batch(batch_inputs,
+                                                     is_grounding)
+        ids, mask = self.tokenizer.encode_batch(texts, padding_side="left",
+                                                pad_to_multiple=64)
+        t0 = synced_clock(self.device)
+        image_embeds, video_embeds = self._encode_visuals(images, videos)
+        if penalty_alpha:
+            num_beams = 1
+        self.last_stats = {"encode_s": synced_clock(self.device) - t0,
+                           "images": len(images), "frames": len(videos),
+                           "rows": len(texts), "prompt_len": ids.shape[1],
+                           "beams": max(num_beams, 1)}
+        gcfg = GenerationConfig(
+            max_new_tokens=max_new_tokens, min_length=min_len,
+            num_beams=num_beams, do_sample=do_sample,
+            temperature=temperature or 1.0, top_k=top_k or 0,
+            top_p=top_p or 1.0, repetition_penalty=repetition_penalty,
+            length_penalty=length_penalty,
+            penalty_alpha=penalty_alpha or 0.0,
+            eos_token_id=self.tokenizer.eos_token_id,
+            pad_token_id=self.tokenizer.pad_token_id)
+        return emu2.generate(
+            self.params, self.cfg, torch.from_numpy(ids).to(self.device),
+            torch.from_numpy(mask).to(self.device), gcfg,
+            self.tokenizer.image_token_id, image_embeds=image_embeds,
+            video_token_id=self.tokenizer.gimg_token_id,
+            video_embeds=video_embeds, stats=self.last_stats)
+
+    @torch.inference_mode()
+    def next_token_logits(self, inputs: List,
+                          is_grounding: bool = False) -> torch.Tensor:
+        """Last-position logits [1, V] of one conversation's prompt (a
+        prefill, no decode): the quantity held against a reference."""
+        texts, images, videos = self._assemble_batch([inputs], is_grounding)
+        ids, mask = self.tokenizer.encode_batch(texts, padding_side="left")
+        image_embeds, video_embeds = self._encode_visuals(images, videos)
+        params = self.params
+        ids_t = torch.from_numpy(ids).to(self.device)
+        embeds = emu2.scatter_embeds(params, ids_t, image_embeds,
+                                     self.tokenizer.image_token_id)
+        if video_embeds is not None:
+            embeds = emu2.scatter_embeds(params, ids_t, video_embeds,
+                                         self.tokenizer.gimg_token_id,
+                                         base_embeds=embeds)
+        dec = params["decoder"]
+        cache = llama.init_cache(self.cfg.llama, 1, ids.shape[1],
+                                 device=self.device, dtype=embeds.dtype)
+        hidden, _ = llama.prefill(dec, self.cfg.llama, embeds,
+                                  torch.from_numpy(mask).to(self.device),
+                                  cache)
+        return llama.logits(dec, hidden[:, -1])
