@@ -38,7 +38,16 @@ Phases (any failure raises and the script exits non-zero):
      cache, unjudged; then the engine's decode step alone under
      torch.profiler (kernel time against wall);
  10. the paged KV lane at full width: paged_prefill_insert + 8
-     paged_decode_steps against the dense cache, bf16 and int8.
+     paged_decode_steps against the dense cache, bf16 and int8;
+ 11. one Emu1 train step on a full-width Emu1 cut to 2 layers (2 x 256
+     tokens, fp32 images), card (bf16 weights, kernels A and C with their
+     backward kernels) against the CPU (fp32, plain twins): the loss and
+     every parameter's gradient;
+ 12. the full-width, full-depth Emu1 trained through training.Trainer
+     (random bf16 weights, fp32 224-px images, fused_adafactor,
+     remat="named", 2 x 1024 tokens, 5 steps on one batch): finite, falling
+     losses, ms per step split into forward+backward and optimizer,
+     tokens/s, peak memory, then one step under torch.profiler.
 The line before the last is the kernels' JSON summary (with each kernel's
 bound and the time of one PyTorch call computing the same function, where
 there is one); the last line is {"ok": true, "device": {...}}. Without a
@@ -47,6 +56,7 @@ CUDA card, or outside a checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -59,7 +69,9 @@ SEED = 1234
 MAX_NEW = 32
 # H100 SXM data-sheet peaks for the bound: HBM bytes/s, dense ops/s
 HBM_BPS = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+# training phases: the LLaMA-13B path's attention and norm shapes
+TRAIN_B, TRAIN_S, TRAIN_LR = 2, 1024, 5e-3
 
 
 def bound(nbytes: float, ops: float, kind: str = "bf16"):
@@ -107,6 +119,49 @@ def compare(name: str, got, ref, atol: float, rtol: float) -> dict:
     return {"max_abs_err": err}
 
 
+# A backward output's magnitude falls off along the sequence under a causal
+# mask (the first query rows and keys carry the largest gradients), so one
+# limit scaled by max|ref| would let a wrong block of later rows pass. Each
+# block of BWD_BLOCK rows is held to its own size instead.
+BWD_REL, BWD_BLOCK = 1e-2, 64
+
+
+def compare_blocks(name: str, got, ref, rel: float = BWD_REL,
+                   block: int = BWD_BLOCK) -> dict:
+    """Every block of `block` rows (dim -2: query rows of dQ, key rows of
+    dK/dV, token rows of dx; a vector is one row) of every leading index:
+    ||got - ref||_F <= rel * ||ref||_F + 1e-6 * sqrt(n) over the block, so a
+    block whose reference is zero (rows that see no key, masked keys) must
+    come out zero. Raises if any block is above; returns max |got - ref|."""
+    import torch
+    import torch.nn.functional as F
+    got, ref = got.float(), ref.float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    if got.dim() == 1:
+        got, ref = got[None], ref[None]
+    pad = (-got.shape[-2]) % block
+
+    def blocks(t):
+        t = F.pad(t, (0, 0, 0, pad))
+        return t.reshape(*t.shape[:-2], -1, block * t.shape[-1])
+
+    diff, size = blocks(got - ref), blocks(ref)
+    err_f = torch.linalg.vector_norm(diff, dim=-1)
+    ref_f = torch.linalg.vector_norm(size, dim=-1)
+    worst = float((err_f / (rel * ref_f + 1e-6 * size.shape[-1] ** 0.5))
+                  .max())
+    err = float((got - ref).abs().max())
+    print(f"  {name}: max_abs_err={err:.6g}; per {block}-row block "
+          f"||err||_F <= {rel} ||ref||_F + 1e-6 sqrt(n): worst block at "
+          f"{worst:.4g} of its limit, median block ||err||/||ref|| "
+          f"{float((err_f / ref_f.clamp_min(1e-30)).median()):.4g}")
+    if not worst <= 1.0:
+        raise AssertionError(f"{name}: a {block}-row block is {worst} times "
+                             "its limit")
+    return {"max_abs_err": err}
+
+
 def check_kernels(card: str) -> dict:
     """Phase 3: every kernel against its twin at the paths' shapes, each
     with its bound and, where one exists, one PyTorch call computing the
@@ -129,13 +184,18 @@ def check_kernels(card: str) -> dict:
     results = {}
 
     def run(name, kernel, twin, atol, rtol, nbytes, ops, kind="bf16",
-            library=None):
+            library=None, view=None):
+        """atol and rtol None: the backward's blocked limit
+        (`compare_blocks`)."""
         got, ref = kernel(), twin()
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
+        if view is not None:       # what is compared (e.g. defined rows)
+            got, ref = view(got), view(ref)
         res = {"max_abs_err": 0.0}
         for i, (a, b) in enumerate(zip(got, ref)):
-            r = compare(f"{name}[{i}]", a, b, atol, rtol)
+            r = (compare_blocks(f"{name}[{i}]", a, b) if atol is None
+                 else compare(f"{name}[{i}]", a, b, atol, rtol))
             res["max_abs_err"] = max(res["max_abs_err"], r["max_abs_err"])
         res["ms"], res["plain_ms"] = cuda_ms(kernel), cuda_ms(twin)
         res["bound_ms"], res["bound_by"] = bound(nbytes, ops, kind)
@@ -446,7 +506,158 @@ def check_kernels(card: str) -> dict:
             lambda: Q4.fused_swiglu_q4_reference(xm, wr, *gargs),
             2e-2, 2e-2, nb, 2 * m * 6656 * 35840 + 2 * m * 17920 * 6656,
             "int8")
+    del gu, dn, gargs
+    torch.cuda.empty_cache()
+    check_training_kernels(run, randn, attn_cost, results)
     return results
+
+
+def check_training_kernels(run, randn, attn_cost, results) -> None:
+    """Phase 3, the training path's kernels at its shapes (LLaMA-13B, 40
+    heads of 128, 2 x 1024 tokens, causal, a left-padded row): kernel A
+    with its lse, the dQ and dK/dV kernels (also GQA rep 2, and at 4096
+    causal keys, the TPU's tiled backward tier), the norm backward at
+    2048 x 5120 with and without the add, and kernel A at Sq = Skv = 8192
+    (the TPU's streaming tier)."""
+    import torch
+    import torch.nn.functional as F
+    from emu_tpu_torch.ops import flash_attention as A
+    from emu_tpu_torch.ops import fused_norm as C
+
+    dev = torch.device("cuda")
+    b, h, s, d = TRAIN_B, 40, TRAIN_S, 128
+    scale = d ** -0.5
+    pads = torch.tensor([0, 37], device=dev)
+    valid = torch.arange(s, device=dev)[None] >= pads[:, None]
+    amask = (torch.ones(s, s, dtype=torch.bool, device=dev).tril()[None, None]
+             & valid[:, None, None, :])
+    # rows that see a valid key (causal, Sq == Skv: row i iff i >= pad)
+    seen = valid[:, None, :].expand(b, h, s)
+
+    def bhsd(n_heads):
+        """[B, H, S, D] views of token-major memory, as on the path."""
+        return randn(b, s, n_heads, d).transpose(1, 2)
+
+    q, k, v, do = bhsd(h), bhsd(h), bhsd(h), bhsd(h)
+    pairs = s * (s + 1) // 2
+    nb, ops = attn_cost(b, h, s, s, d, pairs=pairs)
+    run(f"attention_lse_causal_{b}x{h}x{s}x{d}",
+        lambda: A._attention_fwd(q, k, v, None, None, valid, scale, True,
+                                 True),
+        lambda: A.attention_reference(q, k, v, kv_valid=valid, scale=scale,
+                                      causal=True, with_lse=True),
+        1e-2, 1e-2, nb + 4 * b * h * s, ops,
+        library=lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=amask, scale=scale),
+        view=lambda t: (t[0], t[1].masked_fill(~seen, 0.0)))
+    o, lse = A._attention_fwd(q, k, v, None, None, valid, scale, True, True)
+
+    def sdpa_backward(q, k, v):
+        """autograd of SDPA with the same boolean mask, forward excluded"""
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        rep = q.shape[1] // k.shape[1]
+        kk, vv = (t.repeat_interleave(rep, 1) for t in leaves[1:])
+        out = F.scaled_dot_product_attention(leaves[0], kk, vv,
+                                             attn_mask=amask, scale=scale)
+        return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    tile = 2 * b * h * s * d                       # bytes of one bf16 plane
+    prod = 2 * b * h * pairs * d                   # ops of one S x S x D product
+    for tag, kk, vv in (("", k, v), ("_gqa2", k[:, ::2], v[:, ::2])):
+        kw = dict(scale=scale, causal=True)
+        o, lse = A._attention_fwd(q, kk, vv, None, None, valid, scale, True,
+                                  True)
+        _, d_row = A.attention_bwd_dq(q, kk, vv, o, lse, do, valid, **kw)
+        kv_tile = tile * kk.shape[1] // h
+        lib = sdpa_backward(q, kk, vv)
+        run(f"attention_bwd_dq{tag}_{b}x{h}x{s}x{d}",
+            lambda: A.attention_bwd_dq(q, kk, vv, o, lse, do, valid, **kw)[0],
+            lambda: A.attention_bwd_reference(q, kk, vv, o, lse, do, valid,
+                                              **kw)[0], None, None,
+            4 * tile + 2 * kv_tile + 8 * b * h * s, 3 * prod, library=lib)
+        run(f"attention_bwd_dkv{tag}_{b}x{h}x{s}x{d}",
+            lambda: A.attention_bwd_dkv(q, kk, vv, lse, do, d_row, valid,
+                                        **kw),
+            lambda: A.attention_bwd_reference(q, kk, vv, o, lse, do, valid,
+                                              **kw)[1:], None, None,
+            2 * tile + 4 * kv_tile + 8 * b * h * s, 4 * prod, library=lib)
+        one = A.attention_bwd_dkv(q, kk, vv, lse, do, d_row, valid, **kw)
+        two = A.attention_bwd_dkv(q, kk, vv, lse, do, d_row, valid, **kw)
+        if not (torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])):
+            raise AssertionError(f"attention_bwd_dkv{tag}: two runs gave "
+                                 "different bits")
+        del lib, one, two
+    print("  attention_bwd_dkv: two runs give the same bits (MHA, GQA rep 2)")
+    # the backward as one function: five products (the two kernels recompute
+    # S = QK^T and dP = dO V^T, seven in all); reads q, k, v, o, do and lse,
+    # writes dq, dk, dv
+    one_ms, one_by = bound(8 * tile + 4 * b * h * s, 5 * prod)
+    two = results[f"attention_bwd_dq_{b}x{h}x{s}x{d}"]["ms"] + \
+        results[f"attention_bwd_dkv_{b}x{h}x{s}x{d}"]["ms"]
+    print(f"  attention backward {b}x{h}x{s}x{d} as one function: bound "
+          f"{one_ms:.4f} ms ({one_by}); dQ + dK/dV kernels {two:.4f} ms")
+    del q, k, v, do, o, lse, d_row
+    torch.cuda.empty_cache()
+
+    rows, wd = b * s, 5120
+    w = 1 + randn(wd, std=0.1)
+    for add in (True, False):
+        x, dh = randn(rows, wd), randn(rows, wd)
+        r, dy = (randn(rows, wd), randn(rows, wd)) if add else (None, None)
+        y, _, rsig = C.rmsnorm_fwd(w, x, r)
+        leaves = [t.clone().requires_grad_() for t in
+                  ((x, w, r) if add else (x, w))]
+        yl = leaves[0] + leaves[2] if add else leaves[0]
+        hl = F.rms_norm(yl, (wd,), leaves[1], eps=1e-6)
+        outs, cots = ((yl, hl), (dy, dh)) if add else ((hl,), (dh,))
+        tag = "add" if add else "rms"
+        run(f"rmsnorm_bwd_{tag}_{rows}x{wd}",
+            lambda: C.rmsnorm_bwd(y, w, rsig, dh, dy),
+            lambda: C.rmsnorm_bwd_reference(y, w, rsig, dh, dy), None, None,
+            2 * rows * wd * (4 if add else 3) + 8 * wd + 4 * rows,
+            10 * rows * wd, "fp32",
+            library=lambda: torch.autograd.grad(outs, leaves, cots,
+                                                retain_graph=True))
+        if not torch.equal(C.rmsnorm_bwd(y, w, rsig, dh, dy)[1],
+                           C.rmsnorm_bwd(y, w, rsig, dh, dy)[1]):
+            raise AssertionError(f"rmsnorm_bwd_{tag}: two runs gave "
+                                 "different dw bits")
+    print("  rmsnorm_bwd: two runs give the same dw bits (add and no add)")
+    del x, dh, r, dy, y, leaves, yl, hl, outs, cots
+    torch.cuda.empty_cache()
+
+    # the backward at 4096 causal keys, the TPU's tiled tier
+    # (flash_attention.py:778, which takes causal Sq, Skv >= 4096)
+    ts, kw = 4096, dict(scale=scale, causal=True)
+    q, k, v, do = (randn(1, 8, ts, d) for _ in range(4))
+    o, lse = A._attention_fwd(q, k, v, None, None, None, scale, True, True)
+    _, d_row = A.attention_bwd_dq(q, k, v, o, lse, do, **kw)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True, scale=scale)
+    lib = lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+    tile, prod = 2 * 8 * ts * d, 2 * 8 * (ts * (ts + 1) // 2) * d
+    run(f"attention_bwd_dq_1x8x{ts}x{d}",
+        lambda: A.attention_bwd_dq(q, k, v, o, lse, do, **kw)[0],
+        lambda: A.attention_bwd_reference(q, k, v, o, lse, do, **kw)[0],
+        None, None, 6 * tile + 8 * 8 * ts, 3 * prod, library=lib)
+    run(f"attention_bwd_dkv_1x8x{ts}x{d}",
+        lambda: A.attention_bwd_dkv(q, k, v, lse, do, d_row, **kw),
+        lambda: A.attention_bwd_reference(q, k, v, o, lse, do, **kw)[1:],
+        None, None, 6 * tile + 8 * 8 * ts, 4 * prod, library=lib)
+    del q, k, v, do, o, lse, d_row, leaves, out, lib
+    torch.cuda.empty_cache()
+
+    # kernel A at 8192 keys, causal: the TPU's streaming tier
+    ls = 8192
+    q, k, v = (randn(1, 8, ls, d) for _ in range(3))
+    run(f"attention_causal_1x8x{ls}x{d}",
+        lambda: A.attention(q, k, v, scale=scale, causal=True),
+        lambda: A.attention_reference(q, k, v, scale=scale, causal=True),
+        1e-2, 1e-2, *attn_cost(1, 8, ls, ls, d, pairs=ls * (ls + 1) // 2),
+        library=lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale))
+    del q, k, v
+    torch.cuda.empty_cache()
 
 
 def check_two_layer(card: str, image) -> None:
@@ -683,6 +894,176 @@ def check_engine_two_layer(card: str) -> float:
     del dec_gpu
     torch.cuda.empty_cache()
     return err
+
+
+def train_batch(cfg, seq: int):
+    """Two rows of an image's tokens ([IMG] + 32 <image> + [/IMG]) and
+    random text, the second padded on the right by 16 (kv_valid at work,
+    and no query row without a visible key: such rows' gradients follow the
+    flash backward's convention on the card and the plain chain's on the
+    CPU, a difference phase 3 and the CPU tests pin); fp32 224-px images;
+    the special ids (pad, [IMG], [/IMG], <image>) at the end of the base
+    vocab, as the tokenizer adds them."""
+    import torch
+    v = cfg.llama.vocab_size
+    special = (v, v + 1, v + 2, v + 3)
+    g = torch.Generator().manual_seed(SEED)
+    ids = torch.randint(3, v, (TRAIN_B, seq), generator=g)
+    n = cfg.n_causal
+    ids[:, 0], ids[:, 1], ids[:, 2 + n] = 1, v + 1, v + 2
+    ids[:, 2:2 + n] = v + 3
+    mask = torch.ones_like(ids)
+    ids[1, -16:], mask[1, -16:] = v, 0
+    images = torch.randn(TRAIN_B, 224, 224, 3, generator=g) * 0.5
+    return images, ids, mask, special
+
+
+def check_train_two_layer(card: str) -> None:
+    """Phase 11: one Emu1 train step's loss and gradients, a full-width
+    Emu1 cut to 2 layers (phase 4's model), 2 x 256 tokens, fp32 images,
+    card (bf16 weights, remat "named") against the CPU (fp32, plain twins,
+    no remat). Limits stated before the first run: |loss_card - loss_cpu|
+    <= 0.01 * |loss_cpu|; every leaf ||g_card - g_cpu|| <= 0.1 ||g_cpu||
+    (a leaf with no gradient on the CPU has none on the card)."""
+    import torch
+    from emu_tpu_torch import bridge, training
+    from emu_tpu_torch.cli.inference import with_depth
+    from emu_tpu_torch.config import Emu1Config
+    from emu_tpu_torch.models import emu1
+    from emu_tpu_torch.ops.layers import Init
+
+    t0 = time.perf_counter()
+    cfg = with_depth(Emu1Config(), 2)
+    tree = emu1.init(cfg, Init(generator=torch.Generator().manual_seed(SEED)))
+    images, ids, mask, special = train_batch(cfg, 256)
+
+    def loss_and_grads(dev, dtype, remat):
+        params = bridge.trainable(bridge.cast_tree(tree, dev, dtype))
+        loss = training.emu1_loss(params, cfg, images.to(dev), ids.to(dev),
+                                  mask.to(dev), special, remat)
+        loss.backward()
+        return float(loss.detach()), {n: t.grad.float().cpu()
+                             for n, t in bridge.flatten(params).items()}
+
+    ref_loss, ref = loss_and_grads("cpu", None, False)
+    t1 = time.perf_counter()
+    loss, got = loss_and_grads("cuda", torch.bfloat16, "named")
+    torch.cuda.synchronize()
+    print(f"  2-layer full-width Emu1 train step: CPU fp32 {t1 - t0:.1f} s "
+          f"(with the build), card {time.perf_counter() - t1:.1f} s")
+    rel_loss = abs(loss - ref_loss) / abs(ref_loss)
+    print(f"  loss card {loss:.6f} vs CPU {ref_loss:.6f}: rel {rel_loss:.6g}"
+          f" (limit 0.01)")
+    if not rel_loss <= 0.01:
+        raise AssertionError(f"train step loss: relative error {rel_loss}")
+    errs = {}
+    for name, g in ref.items():
+        norm = float(g.norm())
+        diff = float((got[name] - g).norm())
+        if norm == 0.0:
+            if diff != 0.0:
+                raise AssertionError(f"grad {name}: zero on the CPU, not on "
+                                     "the card")
+            continue
+        errs[name] = diff / norm
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])
+    print(f"  {len(errs)} leaves with a gradient ({len(ref) - len(errs)} "
+          f"without); ||g_card - g_cpu|| / ||g_cpu|| max {worst[0][1]:.6g} "
+          f"(limit 0.1), median {worst[len(worst) // 2][1]:.6g}")
+    for name, e in worst[:4]:
+        print(f"    {e:.6g}  {name}")
+    if worst[0][1] > 0.1:
+        raise AssertionError(f"grad {worst[0][0]}: relative error "
+                             f"{worst[0][1]}")
+    del got
+    torch.cuda.empty_cache()
+
+
+def run_train_full(card: str) -> None:
+    """Phase 12: the full-depth Emu1 trained through training.Trainer,
+    5 steps on one batch (2 x 1024 tokens); then one step under
+    torch.profiler (kernel time against the unprofiled step)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.optim.optimizer import (register_optimizer_step_post_hook,
+                                       register_optimizer_step_pre_hook)
+    from torch.profiler import ProfilerActivity, profile
+    from emu_tpu_torch import bridge, optim, training
+    from emu_tpu_torch.config import Emu1Config
+    from emu_tpu_torch.models import emu1
+    from emu_tpu_torch.ops.layers import Init
+
+    t0 = time.perf_counter()
+    cfg = Emu1Config()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tree = emu1.init(cfg, Init(device="cuda", dtype=torch.bfloat16,
+                               generator=gen))
+    images, ids, mask, special = train_batch(cfg, TRAIN_S)
+    trainer = training.Trainer(cfg, tree, optim.fused_adafactor(TRAIN_LR),
+                               special, remat="named", device="cuda")
+    del tree
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t, _ in bridge.grad_leaves(trainer.params))
+    print(f"  built full Emu1 for training in {time.perf_counter() - t0:.1f}"
+          f" s: {n_params / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated "
+          f"(bf16 weights and grad buffers)")
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    # the optimizer's span in each step, from torch's global step hooks (the
+    # trainer builds its optimizer in its first step)
+    opt_starts, opt_spans = [], []
+    hooks = (register_optimizer_step_pre_hook(
+        lambda *_: opt_starts.append(event())),
+        register_optimizer_step_post_hook(
+        lambda *_: opt_spans.append((opt_starts[-1], event()))))
+    torch.cuda.reset_peak_memory_stats()
+    losses, spans = [], []
+    for _ in range(5):
+        s = event()
+        losses.append(trainer.step(images, ids, mask))
+        spans.append((s, event()))
+    for h in hooks:
+        h.remove()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = [s.elapsed_time(e) for s, e in spans]
+    opt_ms = [s.elapsed_time(e) for s, e in opt_spans]
+    tokens = TRAIN_B * TRAIN_S
+    steady = sum(step_ms[1:]) / len(step_ms[1:])
+    steady_opt = sum(opt_ms[1:]) / len(opt_ms[1:])
+    print(f"  losses {[round(x, 6) for x in losses]}")
+    for i, (a, o) in enumerate(zip(step_ms, opt_ms)):
+        print(f"    step {i}: {a:.2f} ms = forward+backward {a - o:.2f} ms "
+              f"+ optimizer {o:.2f} ms")
+    print(f"  steps 1-4: {steady:.2f} ms/step (forward+backward "
+          f"{steady - steady_opt:.2f}, optimizer {steady_opt:.2f}), "
+          f"{tokens / steady * 1e3:.1f} tokens/s ({TRAIN_B} x {TRAIN_S}); "
+          f"peak {peak:.2f} GiB  [{card}]")
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        raise AssertionError(f"training: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training: the loss did not fall {losses}")
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.step(images, ids, mask)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    print(f"  one step under torch.profiler: kernels {busy:.2f} ms against "
+          f"{steady:.2f} ms unprofiled (busy {busy / steady:.2f})  [{card}]")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"    {ms:9.3f} ms  {name[:90]}")
+    del trainer
+    torch.cuda.empty_cache()
 
 
 def png_bytes(image) -> bytes:
@@ -1004,7 +1385,22 @@ KERNELS = [  # name, source, replaces, wrapper, checks (first one timed)
     ("attention", "emu_tpu_torch/csrc/attention.cu",
      "emu_tpu/ops/flash_attention.py:487", "A.attention",
      ["attention_vit_8x16x257x88", "attention_causal_8x40x80x128",
-      "attention_vit_1x16x1025x112"]),
+      "attention_vit_1x16x1025x112", "attention_causal_1x8x8192x128"]),
+    ("attention_lse", "emu_tpu_torch/csrc/attention.cu",
+     "emu_tpu/ops/flash_attention.py:559", "A.attention:lse",
+     ["attention_lse_causal_2x40x1024x128"]),
+    ("attention_bwd_dq", "emu_tpu_torch/csrc/attention_bwd.cu",
+     "emu_tpu/ops/flash_attention.py:938", "A.attention_bwd_dq",
+     ["attention_bwd_dq_2x40x1024x128", "attention_bwd_dq_gqa2_2x40x1024x128",
+      "attention_bwd_dq_1x8x4096x128"]),
+    ("attention_bwd_dkv", "emu_tpu_torch/csrc/attention_bwd.cu",
+     "emu_tpu/ops/flash_attention.py:938", "A.attention_bwd_dkv",
+     ["attention_bwd_dkv_2x40x1024x128",
+      "attention_bwd_dkv_gqa2_2x40x1024x128",
+      "attention_bwd_dkv_1x8x4096x128"]),
+    ("rmsnorm_bwd", "emu_tpu_torch/csrc/rmsnorm.cu",
+     "emu_tpu/ops/fused_norm.py:139", "C.rmsnorm_bwd",
+     ["rmsnorm_bwd_add_2048x5120", "rmsnorm_bwd_rms_2048x5120"]),
     ("fused_mlp", "emu_tpu_torch/csrc/fused_mlp.cu",
      "emu_tpu/ops/fused_mlp.py:357", "B.fused_mlp",
      ["fused_mlp_2056x1408x6144", "fused_mlp_257x1408x6144",
@@ -1175,6 +1571,15 @@ def main() -> int:
                  "paged_decode_attention", "paged_decode_attention_int8"],
                 check_paged, card, chat)[0])
     del chat
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = ["attention", "attention_lse", "attention_bwd_dq",
+             "attention_bwd_dkv", "add_rmsnorm", "rmsnorm_bwd"]
+    print("[11] 2-layer full-width Emu1 train step: card bf16 vs CPU fp32")
+    count(drive("Emu1 2-layer train step", wrappers, train,
+                check_train_two_layer, card)[0])
+    print("[12] full-depth Emu1 training through Trainer")
+    count(drive("Emu1 training", wrappers, train, run_train_full, card)[0])
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

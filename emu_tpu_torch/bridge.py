@@ -37,9 +37,91 @@ class ParamTree(nn.Module):
 
 
 def layer(tree: dict, i: int) -> dict:
-    """Layer i of a stacked subtree (views, no copies)."""
+    """Layer i of a stacked subtree (views, no copies); of a `Stacked`
+    subtree, its layer-i autograd leaves."""
+    if isinstance(tree, Stacked):
+        return tree.layers[i]
     return {k: layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+class Stacked(dict):
+    """A trainable stacked subtree: maps names to the stacked tensors, as
+    any subtree does, and keeps in `layers[i]` layer i's tree of views of
+    them, each an autograd leaf of its own whose `.grad` is preset to the
+    matching view of one stacked grad buffer. The backward then accumulates
+    every layer's gradient in place; indexing the stacked tensor instead
+    would make the backward of each `select` allocate a zero tensor the
+    size of the whole stacked leaf."""
+
+    def __init__(self, tree: dict, n: int):
+        super().__init__(tree)
+        self.layers = [_views(tree, i) for i in range(n)]
+
+
+def _views(tree: dict, i: int) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _views(v, i)
+        else:
+            leaf = v[i]
+            if v.grad is not None:
+                leaf.requires_grad_()
+                leaf.grad = v.grad[i]
+            out[k] = leaf
+    return out
+
+
+STACKED_KEYS = ("layers", "blocks")
+
+
+def trainable(tree: dict) -> dict:
+    """The same tensors, ready for a gradient step: every floating leaf
+    gets a preset zero `.grad`; subtrees under a key in STACKED_KEYS (the
+    param tree's stacked layers: LLaMA and T5 "layers", ViT "blocks")
+    become `Stacked`, whose per-layer views are the autograd leaves; every
+    other floating leaf requires grad itself. The tensors are shared with
+    `tree`, so an optimizer step updates them in place (the counterpart of
+    the JAX trainer's donated buffers)."""
+    def convert(node, in_stack):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                sub = convert(v, in_stack or k in STACKED_KEYS)
+                if k in STACKED_KEYS and not in_stack:
+                    sub = Stacked(sub, _depth(sub))
+                out[k] = sub
+            elif v.is_floating_point():
+                leaf = v.detach()
+                leaf.grad = torch.zeros_like(leaf)
+                out[k] = leaf if in_stack else leaf.requires_grad_()
+            else:
+                out[k] = v
+        return out
+    return convert(tree, False)
+
+
+def _depth(tree: dict) -> int:
+    for v in tree.values():
+        return _depth(v) if isinstance(v, dict) else v.shape[0]
+    raise ValueError("empty stacked subtree")
+
+
+def grad_leaves(tree: dict):
+    """(tensor, grad buffer) of every leaf of a `trainable` tree that has
+    one: the stacked tensors whole, the other leaves as they are."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from grad_leaves(v)
+        elif v.grad is not None:
+            yield v, v.grad
+
+
+def zero_grads(tree: dict) -> None:
+    """Zero every grad buffer of a `trainable` tree in place."""
+    for _, g in grad_leaves(tree):
+        g.zero_()
 
 
 def flatten(tree: dict, prefix: str = "") -> Dict[str, Any]:

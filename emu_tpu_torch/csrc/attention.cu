@@ -20,9 +20,22 @@
 // query under causal + kv_valid) then averages V uniformly, finite, exactly
 // as the plain version does. Columns past Skv take no part at all.
 //
+// Causal tile skip: a block visits only the K/V tiles that hold a column at
+// or left of its last row's diagonal, so a long causal prefill does about
+// half the rectangle's work. The one exception keeps the plain version's
+// semantics: a block holding a fully masked row (no valid key at or left of
+// its diagonal: qi + diag below the batch row's first valid key) visits
+// every tile, since that row's uniform average runs over all Skv columns.
+// Because K/V stream through 64-column tiles with an online softmax, the
+// same kernel also covers the TPU's streaming tier
+// (flash_attention.py:_flash_streaming, Skv > 4096) at any length.
+//
+// With `lse` non-null the kernel also writes each row's log-sum-exp
+// m + log(l) (fp32, [B, H, Sq]), the residual of the recompute-based
+// backward in attention_bwd.cu (the TPU's _flash_short(with_lse=True)).
+//
 // First version: fragments go through shared memory between the two
-// products, and every K/V tile is visited (no causal tile skip). wgmma, TMA
-// and the skip are later work.
+// products. wgmma and TMA are later work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -47,6 +60,7 @@ struct AttnArgs {
   const __nv_bfloat16* v_bias;  // [Hkv, D] or null
   const unsigned char* kv_valid;  // [B, Skv] (0 = masked) or null
   __nv_bfloat16* o;
+  float* lse;                     // [B, H, Sq] or null
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -143,7 +157,29 @@ __global__ void __launch_bounds__(THREADS) attention_kernel(AttnArgs a) {
     l_s[lane] = 0.f;
   }
   const int diag = a.Skv - a.Sq;
-  const int n_tiles = (a.Skv + BK - 1) / BK;
+  int n_tiles = (a.Skv + BK - 1) / BK;
+  if (a.causal) {
+    // first valid key of this batch row (Skv when there is none)
+    int first = 0;
+    if (a.kv_valid != nullptr) {
+      __shared__ int first_s;
+      if (threadIdx.x == 0) first_s = a.Skv;
+      __syncthreads();
+      for (int j = threadIdx.x; j < a.Skv; j += THREADS)
+        if (a.kv_valid[b * a.Skv + j]) {
+          atomicMin(&first_s, j);
+          break;
+        }
+      __syncthreads();
+      first = first_s;
+    }
+    // skip the tiles right of the last row's diagonal unless a row of this
+    // block sees no valid key (it averages all Skv columns)
+    if (q0 + diag >= first) {
+      const int last_col = q0 + BQ - 1 + diag;
+      n_tiles = min(n_tiles, last_col < 0 ? 0 : last_col / BK + 1);
+    }
+  }
 
   for (int t = 0; t < n_tiles; ++t) {
     const int j0 = t * BK;
@@ -238,6 +274,13 @@ __global__ void __launch_bounds__(THREADS) attention_kernel(AttnArgs a) {
     __syncwarp();
   }
 
+  if (a.lse != nullptr && lane < 16) {
+    const int row = q0 + warp * 16 + lane;
+    if (row < a.Sq)
+      a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + row] =
+          m_s[lane] + logf(l_s[lane]);
+  }
+
   // normalise and store this warp's rows, 8 values per 16-byte store
   const int vec_per_row = a.D / 8;
   __nv_bfloat16* op = a.o + b * a.o_sb + h * a.o_sh;
@@ -259,7 +302,7 @@ __global__ void __launch_bounds__(THREADS) attention_kernel(AttnArgs a) {
 
 extern "C" int emu_attention_fwd(
     const void* q, const void* k, const void* v, const void* q_bias,
-    const void* v_bias, const void* kv_valid, void* o,
+    const void* v_bias, const void* kv_valid, void* o, void* lse,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
@@ -274,6 +317,7 @@ extern "C" int emu_attention_fwd(
   a.v_bias = static_cast<const __nv_bfloat16*>(v_bias);
   a.kv_valid = static_cast<const unsigned char*>(kv_valid);
   a.o = static_cast<__nv_bfloat16*>(o);
+  a.lse = static_cast<float*>(lse);
   a.q_sb = q_sb; a.q_sh = q_sh; a.q_ss = q_ss;
   a.k_sb = k_sb; a.k_sh = k_sh; a.k_ss = k_ss;
   a.v_sb = v_sb; a.v_sh = v_sh; a.v_ss = v_ss;

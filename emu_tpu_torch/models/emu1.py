@@ -1,11 +1,11 @@
 """Emu1 composite: EVA-ViT-g → ln_visual → Causal Former → LLaMA-13B, as
 `emu_tpu/models/emu1.py` (captioning/VQA path: `encode_image`,
-`scatter_image_embeds`, `generate`). `Emu1` is the nn.Module that holds
-the param tree under the JAX package's names."""
+`scatter_image_embeds`, `generate`; training: `forward_loss`). `Emu1` is
+the nn.Module that holds the param tree under the JAX package's names."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -46,6 +46,24 @@ def scatter_image_embeds(params: dict, token_ids, image_embeds,
     gathered = image_embeds[order.clamp(0, image_embeds.shape[0] - 1)]
     gathered = gathered.reshape(b, s, -1).to(embeds.dtype)
     return torch.where(is_img[:, :, None], gathered, embeds)
+
+
+def forward_loss(params: dict, cfg: Emu1Config, token_ids, attention_mask,
+                 image_embeds, special_ids: Tuple[int, int, int, int],
+                 remat=False):
+    """Masked shifted cross-entropy (the reference's modeling_llama.py
+    loss), as `emu_tpu.models.emu1.forward_loss`: special_ids are (pad,
+    [IMG], [/IMG], <image>); those targets and padding are ignored. remat
+    takes `llama.forward_hidden`'s policies."""
+    pad_id, img_id, img_end_id, image_id = special_ids
+    embeds = scatter_image_embeds(params, token_ids, image_embeds, image_id)
+    hidden = llama.forward_hidden(params["decoder"], cfg.llama, embeds,
+                                  attention_mask, remat=remat)
+    ignore = ((token_ids == pad_id) | (token_ids == img_id)
+              | (token_ids == img_end_id) | (token_ids == image_id))
+    shift_valid = ~ignore[:, 1:] & attention_mask[:, 1:].bool()
+    return llama.masked_ce_loss(params["decoder"], hidden[:, :-1],
+                                token_ids[:, 1:], shift_valid)
 
 
 def generate(params: dict, cfg: Emu1Config, token_ids, attention_mask,

@@ -13,9 +13,15 @@ as extra columns (kernel D) and the step then commits all layers' rows in
 one scatter per plane (`_cache_write_all`: one slot, per-row slots, or
 per-row chunks).
 
-Both norms of every layer run through kernel C at every row count; the
-final norm keeps HF semantics (`layers.rms_norm`), as in the JAX package.
-Prefill attention runs kernel A in causal mode at every prompt length.
+Both norms of every bf16 layer run through kernel C at every row count;
+the final norm keeps HF semantics (`layers.rms_norm`), as in the JAX
+package. Prefill attention runs kernel A in causal mode at every prompt
+length. fp32 activations take the plain compositions (`layers.rms_norm`,
+the plain attention), as the JAX package leaves them to XLA. Training:
+`forward_hidden(remat=...)` checkpoints each layer (`torch.utils.
+checkpoint`) and `masked_ce_loss` streams the lm_head in checkpointed row
+chunks; kernels A and C are differentiable (their backward kernels run in
+the backward pass).
 With int4 weights on the fused layout, decode-shaped batches (<= 32 rows)
 run the whole MLP residual branch as kernel G (`q4_matmul.swiglu_q4_plan`),
 and the int4 projections at <= 1024 rows run kernel F (`layers.dense`).
@@ -28,6 +34,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from emu_tpu_torch.config import LlamaConfig
 from emu_tpu_torch.bridge import layer
@@ -159,9 +167,45 @@ def logits(params: dict, hidden):
     return L.dense(params["lm_head"], hidden)
 
 
+def _remat_kwargs(remat) -> dict:
+    """`torch.utils.checkpoint` arguments of a remat setting, the JAX
+    package's policies mapped onto selective checkpointing: True recomputes
+    the whole layer; "dots" keeps the outputs of the weight products
+    (aten.mm / addmm, no batch dims: jax's dots_with_no_batch_dims_saveable)
+    and recomputes the rest; "named" and "dots+attn" also keep kernel A's
+    output (and lse), so the backward does not launch the attention forward
+    again. In the JAX package "named" keeps the bf16 dense outputs where
+    "dots" keeps fp32 dot results; torch's bf16 products are rounded
+    already, so here the two named policies coincide."""
+    if remat is True:
+        return {}
+    if remat == "dots+attn":      # an alias, kept for the JAX API's names
+        remat = "named"
+    saved = {"dots": ("mm",), "named": ("mm", "attn")}.get(remat)
+    if saved is None:
+        raise ValueError(f"unknown remat policy {remat!r}")
+    ops = set()
+    if "mm" in saved:
+        ops |= {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+    if "attn" in saved:
+        ops.add(torch.ops.emu_tpu_torch.attention_fwd.default)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, policy)}
+
+
 def forward_hidden(params: dict, cfg: LlamaConfig, inputs_embeds,
-                   attention_mask):
-    """Causal forward over the whole sequence → final-norm hidden states."""
+                   attention_mask, remat=False):
+    """Causal forward over the whole sequence → final-norm hidden states.
+
+    remat (under grad only): False keeps every layer's activations; True,
+    "dots", "named" or "dots+attn" checkpoint each layer (`_remat_kwargs`).
+    The JAX package's `scan_unroll` has no counterpart: the port's layer
+    loop is an eager Python loop, unrolled already."""
     s = inputs_embeds.shape[1]
     rows = R.gather_rope_rows(*rope_tables(cfg, s, inputs_embeds.device),
                               _positions_from_mask(attention_mask))
@@ -171,9 +215,42 @@ def forward_hidden(params: dict, cfg: LlamaConfig, inputs_embeds,
         return dot_product_attention(q, k, v, kv_valid=attention_mask,
                                      causal=True, scale=cfg.head_dim ** -0.5)
 
+    def run(x, i):
+        return _layer(layer(params["layers"], i), cfg, x, rows, attend)
+
+    kw = _remat_kwargs(remat) if remat else None
     for i in range(cfg.num_hidden_layers):
-        x = _layer(layer(params["layers"], i), cfg, x, rows, attend)
+        if kw is not None and torch.is_grad_enabled():
+            x = checkpoint(run, x, i, use_reentrant=False, **kw)
+        else:
+            x = run(x, i)
     return L.rms_norm(params["norm"], x, cfg.rms_norm_eps)
+
+
+def masked_ce_loss(params: dict, hidden, labels, valid, chunk: int = 1024):
+    """Masked mean cross-entropy of the lm_head logits without [B, T, V]:
+    hidden [B, T, D] (already shifted by the caller), labels/valid [B, T].
+    Rows stream through the lm_head in `chunk`-row slabs, each under
+    `torch.utils.checkpoint`, so the fp32 logits exist one chunk at a time
+    and the backward recomputes them; the lm_head grad accumulates over the
+    chunks. The same math as the full logsumexp CE (row chunking is exact),
+    as `emu_tpu.models.llama.masked_ce_loss`."""
+    d = hidden.shape[-1]
+    hf = hidden.reshape(-1, d)
+    tg = labels.reshape(-1)
+    vl = valid.reshape(-1).float()
+
+    def chunk_ll(h, tgt, v):
+        lg = L.dense(params["lm_head"], h).float()
+        picked = lg.gather(-1, tgt[:, None])[:, 0]
+        return ((picked - torch.logsumexp(lg, -1)) * v).sum()
+
+    total = hf.new_zeros((), dtype=torch.float32)
+    for s0 in range(0, hf.shape[0], chunk):
+        args = (hf[s0:s0 + chunk], tg[s0:s0 + chunk], vl[s0:s0 + chunk])
+        total = total + (checkpoint(chunk_ll, *args, use_reentrant=False)
+                         if torch.is_grad_enabled() else chunk_ll(*args))
+    return -total / vl.sum().clamp_min(1.0)
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int, *, device,

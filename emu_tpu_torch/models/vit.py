@@ -5,23 +5,26 @@ biases only), GELU or SwiGLU MLP, and the sub-LN, layerscale, 2-D RoPE and
 shared relative-position-bias variants. `forward_features` returns the raw
 block output [B, n_patch + 1, width].
 
-Plain blocks (no RoPE, no rel-pos bias, no sub-LN) run their attention
-through kernel A on head-major views of the qkv projection, q/v biases
-inside the kernel (`_fused_attn_branch`), and their MLP residual branch
-through kernel B, or kernel E for W8A8 weights at >= 2048 rows
-(`layers.fused_block_mlp`). The other variants take plain torch, as they
-take XLA in the JAX package. W8A8 towers (`quant.quantize_model_params`)
-quantize the qkv and proj activations per token, as the JAX branch's
-`einsum_w8a8` does.
+Plain blocks (no RoPE, no rel-pos bias, no sub-LN) in bf16 run their
+attention through kernel A on head-major views of the qkv projection, q/v
+biases inside the kernel (`_fused_attn_branch`), and their MLP residual
+branch through kernel B, or kernel E for W8A8 weights at >= 2048 rows
+(`layers.fused_block_mlp`). fp32 images (the trainer's) and the other
+variants take plain torch, as they take XLA in the JAX package
+(`vit.py:155`). `forward_features(remat=True)` checkpoints each block.
+W8A8 towers (`quant.quantize_model_params`) quantize the qkv and proj
+activations per token, as the JAX branch's `einsum_w8a8` does.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from emu_tpu_torch.config import VisionConfig
 from emu_tpu_torch.bridge import layer
+from emu_tpu_torch.ops import _cuda
 from emu_tpu_torch.ops import layers as L
 from emu_tpu_torch.ops import quant as Q
 from emu_tpu_torch.ops import rope as R
@@ -175,7 +178,8 @@ def _block(cfg: VisionConfig, p: dict, x, rope_tables=None,
     plain_forms = all(("kernel" in p["attn"][n] or "kernel_w8a8" in p["attn"][n])
                       for n in ("qkv", "proj"))
     if (rope_tables is None and rel_pos_bias is None
-            and "inner_ln" not in p["attn"] and plain_forms):
+            and "inner_ln" not in p["attn"] and plain_forms
+            and _cuda.kernel_dtype(x)):
         x = _fused_attn_branch(cfg, p, x, g1)
     elif cfg.postnorm:
         x = x + scaled(L.layer_norm(p["norm1"], attn(x), cfg.ln_eps), g1)
@@ -192,10 +196,13 @@ def _block(cfg: VisionConfig, p: dict, x, rope_tables=None,
     return x + scaled(mlp(L.layer_norm(p["norm2"], x, cfg.ln_eps)), g2)
 
 
-def forward_features(params: dict, cfg: VisionConfig, images):
+def forward_features(params: dict, cfg: VisionConfig, images,
+                     remat: bool = False):
     """[B, H, W, 3] normalized images → [B, n_patch + 1, width], computed
     in the images' dtype (the weights are cast to it), as the JAX ViT does;
-    callers cast the images to choose it (its `compute_dtype`)."""
+    callers cast the images to choose it (its `compute_dtype`). remat=True
+    recomputes each block in the backward (torch.utils.checkpoint), the
+    JAX package's per-block jax.checkpoint."""
     x = L.patch_embed(params["patch_embed"], images, cfg.patch_size)
     cls = params["cls_token"].to(x.dtype).expand(x.shape[0], 1, cfg.width)
     x = torch.cat([cls, x], dim=1)
@@ -215,5 +222,10 @@ def forward_features(params: dict, cfg: VisionConfig, images):
         # [S, S, H] → [1, H, S, S], shared by every block
         rel_bias = params["rel_pos_bias"][idx].permute(2, 0, 1)[None]
     for i in range(cfg.layers):
-        x = _block(cfg, layer(params["blocks"], i), x, rope_tables, rel_bias)
+        p = layer(params["blocks"], i)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(_block, cfg, p, x, rope_tables, rel_bias,
+                           use_reentrant=False)
+        else:
+            x = _block(cfg, p, x, rope_tables, rel_bias)
     return x

@@ -29,7 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
-    "emu_attention_fwd": [_P] * 7 + [_L] * 12 + [_I] * 6 + [_F, _I, _P],
+    "emu_attention_fwd": [_P] * 8 + [_L] * 12 + [_I] * 6 + [_F, _I, _P],
+    "emu_attention_bwd_dq": [_P] * 12 + [_I] * 6 + [_F, _I, _P],
+    "emu_attention_bwd_dkv": [_P] * 12 + [_I] * 6 + [_F, _I, _P],
     "emu_fused_mlp_splits": [_I, _I],
     "emu_fused_mlp_fwd": [_P] * 9 + [_I] * 5 + [_F, _I, _I, _P],
     "emu_fused_mlp_w8a8_fwd": [_P] * 9 + [_I, _I, _F] + [_P] * 7 + [_I] * 5
@@ -38,6 +40,7 @@ SIGNATURES = {
     "emu_matmul_q4_fwd": [_P] * 8 + [_I] * 4 + [_P],
     "emu_fused_swiglu_q4_fwd": [_P] * 13 + [_I] * 6 + [_F, _I, _P],
     "emu_add_rmsnorm_fwd": [_P] * 6 + [_I, _I, _F, _P],
+    "emu_add_rmsnorm_bwd": [_P] * 8 + [_I] * 3 + [_P],
     "emu_decode_attention_fwd": [_P] + [_L] * 3 + [_P] * 6 + [_L] * 3 + [_P]
                                 + [_L] * 3 + [_P] + [_I] * 3 + [_P]
                                 + [_I] * 6 + [_L, _F, _I, _P],
@@ -51,6 +54,26 @@ def on_cpu(t, name: str) -> bool:
         return True
     require(t.device.type == "cuda", f"{name}: unsupported device {t.device}")
     return False
+
+
+def kernel_dtype(x) -> bool:
+    """The JAX package's dtype rule for its fused kernels (`fused_norm.
+    _eligible`, `vit._fused_attn_branch`, `layers._fused_mlp_plan`): 2-byte
+    activations (bf16) take the kernel route; fp32 activations take the
+    plain composition, as they take XLA there."""
+    return x.element_size() <= 2
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """An inference-only kernel's output carries no gradient: refuse to
+    launch it where autograd would need one, instead of returning a tensor
+    that silently cuts the graph."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward; call it under "
+            "torch.no_grad() or on inputs that do not require grad")
 
 
 def _nvcc() -> str:

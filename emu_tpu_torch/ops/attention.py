@@ -6,9 +6,10 @@ planes [B, Hkv, S, D]. Masking vocabulary as in `emu_tpu/ops/attention.py`:
 padding mask (nonzero = attend), `mask`/`bias` are dense forms. Masked
 logits are -1e30, not -inf, so fully-masked rows stay finite.
 
-Routing: attention with no dense bias or mask goes to kernel A
-(`flash_attention.attention`). Cache attention follows the JAX package's
-rule (`emu_tpu/ops/attention.py:218-260`): Sq == 1, or k_new/v_new with
+Routing: bf16 attention with no dense bias or mask goes to kernel A
+(`flash_attention.attention`, differentiable); fp32 activations take the
+plain chain, as the JAX package's fused kernels leave them to XLA. Cache
+attention follows the JAX package's rule (`emu_tpu/ops/attention.py:218-260`): Sq == 1, or k_new/v_new with
 Sq <= 32, with a kv_valid mask and no dense mask or causal flag, goes to
 kernel D (`decode_attention`, or `paged_decode_attention` for a page pool);
 each runs its plain twin on CPU tensors. Every other shape, and the dense
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+from emu_tpu_torch.ops import _cuda
 from emu_tpu_torch.ops import flash_attention as fa
 from emu_tpu_torch.ops.attention_reference import grouped_attention
 from emu_tpu_torch.ops.decode_attention import (MAX_CHUNK, decode_attention,
@@ -34,7 +36,7 @@ def dot_product_attention(q, k, v, *, bias=None, mask=None, kv_valid=None,
     heads than q (GQA)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if bias is None and mask is None:
+    if bias is None and mask is None and _cuda.kernel_dtype(q):
         return fa.flash_attention(q, k, v, kv_valid=kv_valid,
                                   scale=float(scale), causal=causal)
     return grouped_attention(q, k, v, scale=scale, bias=bias, mask=mask,

@@ -18,7 +18,8 @@ _NEG_INF = -1e30
 
 def grouped_attention(q, k, v, *, scale: float, bias=None, mask=None,
                       kv_valid=None, causal: bool = False,
-                      kv_layout: str = "bkgd", k_new=None, v_new=None):
+                      kv_layout: str = "bkgd", k_new=None, v_new=None,
+                      return_lse: bool = False):
     """q [B, Sq, H, D]; k/v [B, Skv, Hkv, D] (kv_layout "bkgd", token-major)
     or [B, Hkv, Skv, D] ("bgkd", head-major cache planes); H a multiple of
     Hkv, query head h reading kv head h // (H/Hkv), with no repeated K/V.
@@ -27,7 +28,9 @@ def grouped_attention(q, k, v, *, scale: float, bias=None, mask=None,
     (nonzero = attend); causal aligned to the end of the keys (query i sees
     key j iff j <= i + Skv - Sq). k_new/v_new [B, Hkv, Sq_new, D]: the
     current chunk's k/v as extra always-valid columns (deferred cache
-    writes); query i sees extra column j iff j <= i. → [B, Sq, H, D]."""
+    writes); query i sees extra column j iff j <= i. → [B, Sq, H, D], and
+    with return_lse also the rows' log-sum-exp of the masked logits (fp32,
+    [B, H, Sq]), the residual of the attention backward."""
     b, sq, h, d = q.shape
     hkv, skv = (k.shape[2], k.shape[1]) if kv_layout == "bkgd" else k.shape[1:3]
     rep = h // hkv
@@ -58,9 +61,12 @@ def grouped_attention(q, k, v, *, scale: float, bias=None, mask=None,
             ln = ln.masked_fill(~(cj <= qi), _NEG_INF)
         logits = torch.cat([logits, ln], dim=-1)
     probs = torch.softmax(logits, dim=-1).to(q.dtype).float()
+    lse = (torch.logsumexp(logits, dim=-1).reshape(b, h, sq) if return_lse
+           else None)
     out = torch.einsum(f"bgrqk,{kv_layout}->bqgrd", probs[..., :skv],
                        v.float())
     if k_new is not None:
         out = out + torch.einsum("bgrqk,bgkd->bqgrd", probs[..., skv:],
                                  v_new.float())
-    return out.reshape(b, sq, h, d).to(q.dtype)
+    out = out.reshape(b, sq, h, d).to(q.dtype)
+    return (out, lse) if return_lse else out

@@ -204,6 +204,8 @@ def decode_attention(q, k, v, kv_valid, k_scale=None, v_scale=None, *,
         return decode_attention_reference(q, k, v, kv_valid, k_scale, v_scale,
                                           scale=scale, layer=layer,
                                           k_new=k_new, v_new=v_new)
+    _cuda.refuse_grad("decode_attention", q, k, v, k_scale, v_scale, k_new,
+                      v_new)
     if layer is None:
         k, v, layer = k[None], v[None], 0
         if k_scale is not None:
@@ -233,6 +235,8 @@ def paged_decode_attention(q, k, v, page_table, kv_valid, *, scale: float,
         return paged_decode_attention_reference(
             q, k, v, page_table, kv_valid, scale=scale, k_scale=k_scale,
             v_scale=v_scale, layer=layer, k_new=k_new, v_new=v_new)
+    _cuda.refuse_grad("paged_decode_attention", q, k, v, k_scale, v_scale,
+                      k_new, v_new)
     if layer is None:
         k, v, layer = k[None], v[None], 0
         if k_scale is not None:

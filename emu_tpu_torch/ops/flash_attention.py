@@ -1,23 +1,36 @@
-"""Kernel A: tiled attention over head-major [B, H, S, D] tensors.
+"""Kernel A and its backward: tiled attention over head-major [B, H, S, D]
+tensors, differentiable.
 
-One CUDA kernel (`csrc/attention.cu`) takes the place of two TPU kernels of
-`emu_tpu/ops/flash_attention.py`:
+The forward kernel (`csrc/attention.cu`) takes the place of three TPU kernels
+of `emu_tpu/ops/flash_attention.py`:
 
 - `mha_bhsd`: the ViT's unmasked self-attention with per-head q/v
   projection biases folded in; here the ragged sequence edge (ViT-g's 257
   tokens) is masked inside the kernel instead of being padded by the
   caller;
-- `flash_attention` (its `_flash_short` tier): end-aligned causal mask plus
-  a [B, Skv] `kv_valid` padding mask, the LLaMA prefill contract.
+- `flash_attention`'s `_flash_short` tier: end-aligned causal mask plus a
+  [B, Skv] `kv_valid` padding mask, the LLaMA prefill contract, with the
+  per-row log-sum-exp the backward needs (`with_lse`);
+- its `_flash_streaming` tier (Skv > 4096): the kernel streams K/V in
+  64-column tiles with an online softmax at every length and skips the
+  causal tiles right of the diagonal.
 
-`attention` is the wrapper. On a CPU tensor it runs `attention_reference`,
-its plain PyTorch twin (the port's one plain attention,
-`attention_reference.grouped_attention`, on head-major K/V). On a CUDA
-tensor it launches the kernel or raises.
+The backward kernels (`csrc/attention_bwd.cu`, dQ and dK/dV) take the place
+of `_flash_bwd_whole` and `_flash_bwd_tiled`, the recompute-based backward
+of `_flash_diff`.
+
+`attention` is the differentiable entry point: a `torch.autograd.Function`
+whose forward is the custom op `emu_tpu_torch::attention_fwd` (so that
+selective checkpointing can keep its output, `llama.forward_hidden`'s
+"named" remat) and whose backward is `attention_bwd`. On CPU tensors every
+wrapper runs its plain twin (`attention_reference`, `attention_bwd_
+reference`) and counts no launch; on CUDA tensors it launches its kernel or
+raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -27,18 +40,273 @@ from emu_tpu_torch.ops.attention_reference import grouped_attention
 
 
 def attention_reference(q, k, v, q_bias=None, v_bias=None, *, kv_valid=None,
-                        scale: float, causal: bool = False):
-    """Plain twin of `attention`. q [B, H, Sq, D]; k/v [B, Hkv, Skv, D]
-    (H a multiple of Hkv: query head h reads kv head h // (H/Hkv));
-    q_bias [H, D], v_bias [Hkv, D]; kv_valid [B, Skv] (nonzero = attend)."""
+                        scale: float, causal: bool = False,
+                        with_lse: bool = False):
+    """Plain twin of kernel A. q [B, H, Sq, D]; k/v [B, Hkv, Skv, D] (H a
+    multiple of Hkv: query head h reads kv head h // (H/Hkv)); q_bias
+    [H, D], v_bias [Hkv, D]; kv_valid [B, Skv] (nonzero = attend). With
+    with_lse, also the per-row log-sum-exp of the masked logits (fp32,
+    [B, H, Sq])."""
     if q_bias is not None:
         q = q + q_bias.to(q.dtype)[None, :, None, :]
     if v_bias is not None:
         v = v + v_bias.to(v.dtype)[None, :, None, :]
     out = grouped_attention(q.transpose(1, 2), k, v, scale=scale,
                             kv_valid=kv_valid, causal=causal,
-                            kv_layout="bgkd")
+                            kv_layout="bgkd", return_lse=with_lse)
+    if with_lse:
+        out, lse = out
+        return out.transpose(1, 2), lse
     return out.transpose(1, 2)
+
+
+def _check_bhsd(wrapper, *tensors):
+    for tname, t in tensors:
+        _cuda.require(t.dtype == torch.bfloat16,
+                      f"{wrapper}: {tname} must be bfloat16")
+        _cuda.require(t.device == tensors[0][1].device and t.stride(-1) == 1
+                      and all(s % 8 == 0 for s in t.stride()[:3])
+                      and t.data_ptr() % 16 == 0,
+                      f"{wrapper}: {tname} needs a contiguous, 16-byte aligned"
+                      " last dim")
+
+
+def _attention_fwd(q, k, v, q_bias, v_bias, kv_valid, scale: float,
+                   causal: bool, with_lse: bool):
+    """Kernel A (or its twin on CPU tensors) → (out [B, H, Sq, D], lse
+    [B, H, Sq] fp32, or an empty tensor without with_lse)."""
+    if _cuda.on_cpu(q, "attention"):
+        out = attention_reference(q, k, v, q_bias, v_bias, kv_valid=kv_valid,
+                                  scale=scale, causal=causal,
+                                  with_lse=with_lse)
+        return out if with_lse else (out, q.new_empty(0, dtype=torch.float32))
+    _cuda.refuse_grad("attention", q, k, v, q_bias, v_bias)
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    _cuda.require(k.shape == v.shape == (b, hkv, skv, d) and h % hkv == 0,
+                  f"attention: bad shapes q{tuple(q.shape)} k{tuple(k.shape)}"
+                  f" v{tuple(v.shape)}")
+    _cuda.require(d % 8 == 0 and d <= 128 and sq >= 1 and skv >= 1,
+                  f"attention: head dim {d} must be a multiple of 8, <= 128")
+    _check_bhsd("attention", ("q", q), ("k", k), ("v", v))
+    if q_bias is not None:
+        q_bias = q_bias.to(torch.bfloat16).reshape(h, d).contiguous()
+    if v_bias is not None:
+        v_bias = v_bias.to(torch.bfloat16).reshape(hkv, d).contiguous()
+    if kv_valid is not None:
+        _cuda.require(kv_valid.shape == (b, skv),
+                      f"attention: kv_valid must be [{b}, {skv}]")
+        kv_valid = kv_valid.to(device=q.device, dtype=torch.bool).contiguous()
+    out = torch.empty(b, sq, h, d, device=q.device, dtype=q.dtype
+                      ).transpose(1, 2)
+    lse = torch.empty(b, h, sq if with_lse else 0, device=q.device,
+                      dtype=torch.float32)
+    with torch.cuda.device(q.device):
+        status = _cuda.library().emu_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _cuda.ptr(q_bias),
+            _cuda.ptr(v_bias), _cuda.ptr(kv_valid), out.data_ptr(),
+            lse.data_ptr() if with_lse else None,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], b, h, hkv, sq, skv, d, float(scale),
+            int(causal), _cuda.stream(q))
+    _cuda.check(status, "attention")
+    attention.launches += 1
+    attention.forms["lse" if with_lse else "plain"] += 1
+    return out, lse
+
+
+# Kernel A as an operator the dispatcher sees, so that a selective
+# checkpoint policy can name it (llama.forward_hidden's "named" remat keeps
+# its output and lse instead of launching it again in the backward).
+_attention_op = torch.library.custom_op(
+    "emu_tpu_torch::attention_fwd", _attention_fwd, mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? q_bias, Tensor? v_bias, "
+           "Tensor? kv_valid, float scale, bool causal, bool with_lse) -> "
+           "(Tensor, Tensor)")
+
+
+def _bwd_reference(q, k, v, lse, do, d_row, kv_valid, scale, causal):
+    """The backward's steps in fp32, D = rowsum(dO o O) given as d_row
+    [B, H, Sq] → (dq, dk, dv) in the inputs' dtype."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    dt = q.dtype
+
+    def grouped(t):                    # [B, H, S, ...] → [B, Hkv, rep, S, ...]
+        return t.float().reshape(b, hkv, rep, *t.shape[2:])
+
+    qf, dof = grouped(q), grouped(do)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    s = qf @ kf.transpose(-1, -2) * scale        # [B, Hkv, rep, Sq, Skv]
+    keep = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None]
+        kj = torch.arange(skv, device=q.device)[None, :]
+        keep = kj <= qi + (skv - sq)
+    keep = keep[None, None, None]
+    if kv_valid is not None:
+        keep = keep & kv_valid.bool()[:, None, None, None, :]
+    p = torch.where(keep, torch.exp(s - grouped(lse[..., None])), 0.0)
+    dv = (p.to(dt).float().transpose(-1, -2) @ dof).sum(2)
+    dp = dof @ vf.transpose(-1, -2)
+    ds = (p * (dp - grouped(d_row[..., None]))).to(dt).float()
+    dq = ds @ kf * scale
+    dk = (ds.transpose(-1, -2) @ qf).sum(2) * scale
+    return dq.reshape(b, h, sq, d).to(dt), dk.to(dt), dv.to(dt)
+
+
+def _rowsum_do_o(o, do):
+    return (do.float() * o.float()).sum(-1)
+
+
+def attention_bwd_reference(q, k, v, o, lse, do, kv_valid=None, *,
+                            scale: float, causal: bool = False):
+    """Plain twin of the backward kernels, step by step as the TPU kernels
+    compute it (`flash_attention.py:634-647`), in fp32: D = rowsum(dO o O),
+    P = exp(S - lse) on the kept columns, dV = P^T dO, dS = P o (dO V^T -
+    D), dQ = dS K * scale, dK = dS^T Q * scale; P and dS round to the input
+    dtype before their products, as the TPU kernels round them. q/o/do
+    [B, H, Sq, D], k/v [B, Hkv, Skv, D] (dK/dV sum the rep query heads of a
+    kv head), lse [B, H, Sq]. → (dq, dk, dv) in the inputs' dtype."""
+    return _bwd_reference(q, k, v, lse, do, _rowsum_do_o(o, do), kv_valid,
+                          scale, causal)
+
+
+def _bwd_launch(entry, name, q, k, v, o, lse, do, dvec, kv_valid, dq, dk,
+                dv, scale, causal):
+    """Checks shared by the two backward kernels, then one launch; the
+    tensors a kernel does not take are None."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    _cuda.refuse_grad(name, q, k, v, o, do)
+    _cuda.require(k.shape == v.shape == (b, hkv, skv, d) and h % hkv == 0
+                  and do.shape == q.shape and lse.shape == (b, h, sq)
+                  and lse.dtype == dvec.dtype == torch.float32
+                  and dvec.shape == (b, h, sq),
+                  f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                  f"do{tuple(do.shape)} lse{tuple(lse.shape)}")
+    _cuda.require(d % 8 == 0 and d <= 128,
+                  f"{name}: head dim {d} must be a multiple of 8, <= 128")
+    _check_bhsd(name, *((n, t) for n, t in (("q", q), ("k", k), ("v", v),
+                                            ("o", o), ("do", do))
+                        if t is not None))
+    if kv_valid is not None:
+        _cuda.require(kv_valid.shape == (b, skv),
+                      f"{name}: kv_valid must be [{b}, {skv}]")
+        kv_valid = kv_valid.to(device=q.device, dtype=torch.bool).contiguous()
+    strides = (ctypes.c_longlong * 24)(*(
+        s for t in (q, k, v, o, do, dq, dk, dv)
+        for s in (t.stride()[:3] if t is not None else (0, 0, 0))))
+    with torch.cuda.device(q.device):
+        status = getattr(_cuda.library(), entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _cuda.ptr(o),
+            do.data_ptr(), lse.contiguous().data_ptr(), dvec.data_ptr(),
+            _cuda.ptr(kv_valid), _cuda.ptr(dq), _cuda.ptr(dk), _cuda.ptr(dv),
+            ctypes.addressof(strides), b, h, hkv, sq, skv, d, float(scale),
+            int(causal), _cuda.stream(q))
+    _cuda.check(status, name)
+
+
+def _bwd_do(do):
+    """The cotangent as the kernels read it: unit last stride, 16-byte
+    aligned rows."""
+    if (do.stride(-1) == 1 and all(s % 8 == 0 for s in do.stride()[:3])
+            and do.data_ptr() % 16 == 0):
+        return do
+    return do.contiguous()
+
+
+def attention_bwd_dq(q, k, v, o, lse, do, kv_valid=None, *, scale: float,
+                     causal: bool = False):
+    """The dQ kernel → (dq [B, H, Sq, D] as a view of [B, Sq, H, D] memory,
+    D = rowsum(dO o O) fp32 [B, H, Sq], which `attention_bwd_dkv` reads)."""
+    if _cuda.on_cpu(q, "attention_bwd_dq"):
+        d_row = _rowsum_do_o(o, do)
+        return (_bwd_reference(q, k, v, lse, do, d_row, kv_valid, scale,
+                               causal)[0], d_row)
+    b, h, sq, d = q.shape
+    do = _bwd_do(do)
+    _cuda.require(o.shape == q.shape, "attention_bwd_dq: o must match q")
+    dvec = torch.empty(b, h, sq, device=q.device, dtype=torch.float32)
+    dq = torch.empty(b, sq, h, d, device=q.device, dtype=q.dtype
+                     ).transpose(1, 2)
+    _bwd_launch("emu_attention_bwd_dq", "attention_bwd_dq", q, k, v, o, lse,
+                do, dvec, kv_valid, dq, None, None, scale, causal)
+    attention_bwd_dq.launches += 1
+    return dq, dvec
+
+
+attention_bwd_dq.launches = 0
+
+
+def attention_bwd_dkv(q, k, v, lse, do, d_row, kv_valid=None, *,
+                      scale: float, causal: bool = False):
+    """The dK/dV kernel, given D from `attention_bwd_dq` → (dk, dv)
+    [B, Hkv, Skv, D] as views of [B, Skv, Hkv, D] memory; each kv head sums
+    its rep query heads in the block, so the result is the same bits on
+    every run."""
+    if _cuda.on_cpu(q, "attention_bwd_dkv"):
+        return _bwd_reference(q, k, v, lse, do, d_row, kv_valid, scale,
+                              causal)[1:]
+    b, hkv, skv, d = k.shape
+    do = _bwd_do(do)
+    dk = torch.empty(b, skv, hkv, d, device=q.device, dtype=q.dtype
+                     ).transpose(1, 2)
+    dv = torch.empty_like(dk)
+    _bwd_launch("emu_attention_bwd_dkv", "attention_bwd_dkv", q, k, v, None,
+                lse, do, d_row, kv_valid, None, dk, dv, scale, causal)
+    attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+attention_bwd_dkv.launches = 0
+
+
+def attention_bwd(q, k, v, o, lse, do, kv_valid=None, *, scale: float,
+                  causal: bool = False):
+    """(dq, dk, dv) of `attention` from its inputs, output and lse and the
+    output's cotangent `do` (the shapes of `attention_bwd_reference`): the
+    dQ kernel, then the dK/dV kernel on the same stream."""
+    if _cuda.on_cpu(q, "attention_bwd"):
+        return attention_bwd_reference(q, k, v, o, lse, do, kv_valid,
+                                       scale=scale, causal=causal)
+    dq, d_row = attention_bwd_dq(q, k, v, o, lse, do, kv_valid, scale=scale,
+                                 causal=causal)
+    dk, dv = attention_bwd_dkv(q, k, v, lse, do, d_row, kv_valid,
+                               scale=scale, causal=causal)
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """Kernel A forward, the dQ and dK/dV kernels backward. The q/v biases
+    (the ViT form) enter the backward as q + q_bias and v + v_bias, and
+    their gradients are the sums of dq and dv over batch and sequence."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_bias, v_bias, kv_valid, scale, causal,
+                with_lse):
+        out, lse = _attention_op(q, k, v, q_bias, v_bias, kv_valid, scale,
+                                 causal, with_lse)
+        if with_lse:
+            ctx.save_for_backward(q, k, v, q_bias, v_bias, kv_valid, out, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_bias, v_bias, kv_valid, out, lse = ctx.saved_tensors
+        if q_bias is not None:
+            q = q + q_bias.to(q.dtype)[None, :, None, :]
+        if v_bias is not None:
+            v = v + v_bias.to(v.dtype)[None, :, None, :]
+        dq, dk, dv = attention_bwd(q, k, v, out, lse, dout, kv_valid,
+                                   scale=ctx.scale, causal=ctx.causal)
+        dqb = None if q_bias is None else dq.float().sum((0, 2)).to(
+            q_bias.dtype)
+        dvb = None if v_bias is None else dv.float().sum((0, 2)).to(
+            v_bias.dtype)
+        return dq, dk, dv, dqb, dvb, None, None, None, None
 
 
 def attention(q, k, v, q_bias=None, v_bias=None, *,
@@ -50,53 +318,27 @@ def attention(q, k, v, q_bias=None, v_bias=None, *,
     last dim (views of a [B, S, 3, H, D] projection are read in place).
     The causal mask is aligned to the end of the keys (query i sees key j
     iff j <= i + Skv - Sq). On CUDA the output's memory is [B, Sq, H, D],
-    returned as its [B, H, Sq, D] view."""
-    if _cuda.on_cpu(q, "attention"):
-        return attention_reference(q, k, v, q_bias, v_bias, kv_valid=kv_valid,
-                                   scale=scale, causal=causal)
-    b, h, sq, d = q.shape
-    hkv, skv = k.shape[1], k.shape[2]
-    _cuda.require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
-                  "attention: q/k/v must be bfloat16")
-    _cuda.require(k.shape == v.shape == (b, hkv, skv, d) and h % hkv == 0,
-                  f"attention: bad shapes q{tuple(q.shape)} k{tuple(k.shape)}"
-                  f" v{tuple(v.shape)}")
-    _cuda.require(d % 8 == 0 and d <= 128 and sq >= 1 and skv >= 1,
-                  f"attention: head dim {d} must be a multiple of 8, <= 128")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _cuda.require(t.device == q.device and t.stride(-1) == 1
-                      and all(s % 8 == 0 for s in t.stride()[:3])
-                      and t.data_ptr() % 16 == 0,
-                      f"attention: {name} needs a contiguous, 16-byte aligned"
-                      " last dim")
+    returned as its [B, H, Sq, D] view. Differentiable in q, k, v and the
+    biases; the lse is computed only when autograd will need it."""
+    _cuda.on_cpu(q, "attention")          # raises on other devices
+    h, d, hkv = q.shape[1], q.shape[3], k.shape[1]
     if q_bias is not None:
-        q_bias = q_bias.to(torch.bfloat16).reshape(h, d).contiguous()
+        q_bias = q_bias.reshape(h, d)
     if v_bias is not None:
-        v_bias = v_bias.to(torch.bfloat16).reshape(hkv, d).contiguous()
-    if kv_valid is not None:
-        _cuda.require(kv_valid.shape == (b, skv),
-                      f"attention: kv_valid must be [{b}, {skv}]")
-        kv_valid = kv_valid.to(device=q.device, dtype=torch.bool).contiguous()
-    out = torch.empty(b, sq, h, d, device=q.device, dtype=q.dtype
-                      ).transpose(1, 2)
-    with torch.cuda.device(q.device):
-        status = _cuda.library().emu_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _cuda.ptr(q_bias),
-            _cuda.ptr(v_bias), _cuda.ptr(kv_valid), out.data_ptr(),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], b, h, hkv, sq, skv, d, float(scale),
-            int(causal), _cuda.stream(q))
-    _cuda.check(status, "attention")
-    attention.launches += 1
-    return out
+        v_bias = v_bias.reshape(hkv, d)
+    need = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (q, k, v, q_bias, v_bias))
+    return _Attention.apply(q, k, v, q_bias, v_bias, kv_valid, float(scale),
+                            bool(causal), need)
 
 
 attention.launches = 0
+attention.forms = {"plain": 0, "lse": 0}
 
 
 def mha_bhsd(q, k, v, q_bias=None, v_bias=None, *, scale: float = 1.0):
     """Unmasked self-attention on head-major [B, H, S, D] inputs with
-    per-head [H, D] q/v biases (the ViT-g form). Unlike the TPU kernel, S
+    per-head [H, D] q/v biases (the ViT form). Unlike the TPU kernel, S
     is the real length: no padding, no `s_real`."""
     return attention(q, k, v, q_bias, v_bias, scale=scale)
 
@@ -104,7 +346,9 @@ def mha_bhsd(q, k, v, q_bias=None, v_bias=None, *, scale: float = 1.0):
 def flash_attention(q, k, v, *, kv_valid=None, scale: float = 1.0,
                     causal: bool = False):
     """q [B, Sq, H, D], k/v [B, Skv, Hkv, D] (token-major, as
-    `emu_tpu.ops.flash_attention.flash_attention`) → [B, Sq, H, D]."""
+    `emu_tpu.ops.flash_attention.flash_attention`) → [B, Sq, H, D];
+    differentiable through the backward kernels at every Skv (the TPU
+    package's streaming tier, Skv > 4096, is forward-only)."""
     out = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                     kv_valid=kv_valid, scale=scale, causal=causal)
     return out.transpose(1, 2)

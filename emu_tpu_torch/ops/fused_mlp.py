@@ -74,6 +74,8 @@ def fused_mlp(x, w1, b1, w2, b2, w3=None, b3=None, ln_scale=None,
             x, w1, b1, w2, b2, w3, b3, ln_scale, ln_bias,
             activation=activation, ln_mode=ln_mode, residual=residual,
             eps=eps)
+    _cuda.refuse_grad("fused_mlp", x, w1, b1, w2, b2, w3, b3, ln_scale,
+                      ln_bias)
     if activation != "gelu":
         raise NotImplementedError(
             "fused_mlp on CUDA builds the GELU forms only; SwiGLU is still to "
@@ -181,6 +183,8 @@ def fused_mlp_w8a8(x, w1_q8, scale1, b1, w2_q8, scale2, b2, ln_scale=None,
         return fused_mlp_w8a8_reference(
             x, w1_q8, scale1, b1, w2_q8, scale2, b2, ln_scale, ln_bias,
             ln_mode=ln_mode, residual=residual, eps=eps, bf=bf)
+    _cuda.refuse_grad("fused_mlp_w8a8", x, scale1, b1, scale2, b2, ln_scale,
+                      ln_bias)
     lead, k = x.shape[:-1], x.shape[-1]
     f, n = w1_q8.shape[1], w2_q8.shape[1]
     bf16, i8, f32 = torch.bfloat16, torch.int8, torch.float32

@@ -1,16 +1,25 @@
-"""Kernel C: residual add + RMSNorm forward (`csrc/rmsnorm.cu`).
+"""Kernel C: residual add + RMSNorm, forward and backward (`csrc/rmsnorm.cu`).
 
-Replaces the forward of `emu_tpu/ops/fused_norm.py` (`_norm_call`, behind
+Replaces `emu_tpu/ops/fused_norm.py`: the forward `_norm_call` (behind
 `add_rmsnorm` and `rms_norm_fused`): y = x + r in the activation dtype,
 h = y * rsigma * w with the reduction and the scale multiply in fp32, and
-rsigma = rsqrt(mean(y²) + eps) saved per row for a later backward. Note the
-fp32 scale multiply: `ops.layers.rms_norm` (HF semantics) casts back first.
+rsigma = rsqrt(mean(y²) + eps) saved per row; and the backward
+`_norm_bwd_call`, with g = dh * w (fp32):
 
-Unlike the TPU package, the LLaMA layers run this kernel at every row
-count (8 decode rows as well as prefill slabs), not only from 256 rows up.
+    dx = g * rsigma - y * rsigma³ * mean(g * y) (+ dy, the residual's
+         cotangent, in the add form), given to both x and r;
+    dw = sum over rows of dh * y * rsigma.
 
-`rmsnorm_fwd` is the wrapper: on a CPU tensor it runs `rmsnorm_reference`,
-on a CUDA tensor it launches the kernel or raises.
+Note the fp32 scale multiply: `ops.layers.rms_norm` (HF semantics) casts
+back first. As in the JAX package (`fused_norm._eligible`), only 2-byte
+activations take the kernels; fp32 activations take `layers.rms_norm`, the
+package's XLA route. Unlike the TPU package, the LLaMA layers run the kernel
+at every row count (8 decode rows as well as prefill slabs), not only from
+256 rows up.
+
+`rmsnorm_fwd` and `rmsnorm_bwd` are the wrappers: on a CPU tensor they run
+their plain twins, on a CUDA tensor they launch the kernel or raise.
+`add_rmsnorm` and `rms_norm_fused` are `torch.autograd.Function`s over them.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from emu_tpu_torch.ops import _cuda
+from emu_tpu_torch.ops import layers as L
 
 
 def rmsnorm_reference(w, x, r=None, eps: float = 1e-6):
@@ -33,6 +43,7 @@ def rmsnorm_fwd(w, x, r=None, eps: float = 1e-6):
     """(y, h, rsigma) for x/r [..., W] and w [W]; y is x when r is None."""
     if _cuda.on_cpu(x, "rmsnorm"):
         return rmsnorm_reference(w, x, r, eps)
+    _cuda.refuse_grad("rmsnorm", w, x, r)
     wd = x.shape[-1]
     bf = torch.bfloat16
     _cuda.require(x.dtype == bf and (r is None or r.dtype == bf),
@@ -59,13 +70,105 @@ def rmsnorm_fwd(w, x, r=None, eps: float = 1e-6):
 rmsnorm_fwd.launches = 0
 
 
+def rmsnorm_bwd_reference(y, w, rsigma, dh, dy_ext=None):
+    """Plain twin of `rmsnorm_bwd`: the JAX VJP's math (fused_norm.py:17-20)
+    in fp32 → (dx in y's dtype, dw in w's dtype)."""
+    wd = y.shape[-1]
+    yf = y.reshape(-1, wd).float()
+    dhf = dh.reshape(-1, wd).float()
+    rs = rsigma.reshape(-1, 1)
+    g = dhf * w.float()
+    dot = (g * yf).sum(-1, keepdim=True) / wd
+    dx = g * rs - yf * (rs * rs * rs) * dot
+    if dy_ext is not None:
+        dx = dx + dy_ext.reshape(-1, wd).float()
+    dw = (dhf * yf * rs).sum(0)
+    return dx.to(y.dtype).reshape(y.shape), dw.to(w.dtype)
+
+
+def rmsnorm_bwd(y, w, rsigma, dh, dy_ext=None):
+    """(dx, dw) of h = rmsnorm(w, y) for the cotangents dh of h and, in the
+    add form, dy_ext of y; y [..., W] is the forward's y (x without the
+    add), rsigma its [rows] fp32 output. dw is summed from per-block fp32
+    partials in a fixed order: the same bits on every run."""
+    if _cuda.on_cpu(y, "rmsnorm_bwd"):
+        return rmsnorm_bwd_reference(y, w, rsigma, dh, dy_ext)
+    _cuda.refuse_grad("rmsnorm_bwd", y, w, dh, dy_ext)
+    wd = y.shape[-1]
+    bf = torch.bfloat16
+    _cuda.require(y.dtype == dh.dtype == bf
+                  and (dy_ext is None or dy_ext.dtype == bf),
+                  "rmsnorm_bwd: y, dh and dy_ext must be bfloat16")
+    _cuda.require(w.shape == (wd,) and dh.shape == y.shape
+                  and (dy_ext is None or dy_ext.shape == y.shape),
+                  f"rmsnorm_bwd: bad shapes y{tuple(y.shape)} "
+                  f"dh{tuple(dh.shape)} w{tuple(w.shape)}")
+    yf = y.reshape(-1, wd).contiguous()
+    m = yf.shape[0]
+    _cuda.require(rsigma.numel() == m and rsigma.dtype == torch.float32,
+                  "rmsnorm_bwd: rsigma must be fp32 [rows]")
+    dhf = dh.reshape(-1, wd).contiguous()
+    dyf = None if dy_ext is None else dy_ext.reshape(-1, wd).contiguous()
+    rows_per_block = max(1, -(-m // 256))
+    n_part = -(-m // rows_per_block)
+    dx = torch.empty_like(yf)
+    dw_part = torch.empty(n_part, wd, device=y.device, dtype=torch.float32)
+    dw = torch.empty(wd, device=y.device, dtype=torch.float32)
+    with torch.cuda.device(y.device):
+        status = _cuda.library().emu_add_rmsnorm_bwd(
+            yf.data_ptr(), w.to(bf).contiguous().data_ptr(),
+            rsigma.contiguous().data_ptr(), dhf.data_ptr(), _cuda.ptr(dyf),
+            dx.data_ptr(), dw_part.data_ptr(), dw.data_ptr(), m, wd,
+            rows_per_block, _cuda.stream(y))
+    _cuda.check(status, "rmsnorm_bwd")
+    rmsnorm_bwd.launches += 1
+    return dx.reshape(y.shape), dw.to(w.dtype)
+
+
+rmsnorm_bwd.launches = 0
+
+
+class _AddRMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, x, r, eps):
+        y, h, rsig = rmsnorm_fwd(w, x, r, eps)
+        ctx.save_for_backward(w, y, rsig)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        w, y, rsig = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(y, w, rsig, dh, dy)
+        return dw, dx, dx, None
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, x, eps):
+        _, h, rsig = rmsnorm_fwd(w, x, None, eps)
+        ctx.save_for_backward(w, x, rsig)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        w, x, rsig = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(x, w, rsig, dh)
+        return dw, dx, None
+
+
 def add_rmsnorm(w, x, r, eps: float = 1e-6):
     """(x + r, rmsnorm(w, x + r)): the residual stream and the normed
-    branch input, as `emu_tpu.ops.fused_norm.add_rmsnorm`."""
-    y, h, _ = rmsnorm_fwd(w, x, r, eps)
-    return y, h
+    branch input, as `emu_tpu.ops.fused_norm.add_rmsnorm`; fp32
+    activations take the plain composition."""
+    if not _cuda.kernel_dtype(x):
+        y = x + r
+        return y, L.rms_norm(w, y, eps)
+    return _AddRMSNorm.apply(w, x, r, eps)
 
 
 def rms_norm_fused(w, x, eps: float = 1e-6):
-    """rmsnorm(w, x) through the same kernel (no residual add)."""
-    return rmsnorm_fwd(w, x, None, eps)[1]
+    """rmsnorm(w, x) through the same kernel (no residual add); fp32
+    activations take `layers.rms_norm`."""
+    if not _cuda.kernel_dtype(x):
+        return L.rms_norm(w, x, eps)
+    return _RMSNorm.apply(w, x, eps)

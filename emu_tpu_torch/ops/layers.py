@@ -14,6 +14,7 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 
+from emu_tpu_torch.ops import _cuda
 from emu_tpu_torch.ops import quant as Q
 from emu_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_w8a8
 from emu_tpu_torch.ops.q4_matmul import matmul_q4, q4_plan
@@ -175,9 +176,12 @@ def fused_block_mlp(norm_params: dict, mlp_params: dict, x, eps: float,
     """Whole MLP residual branch in one fused MLP kernel: pre-norm (Emu1)
     x + mlp(LN(x)); post-norm (Emu2) x + LN(mlp(x)). For blocks without a
     sub-LN inside the MLP. Float weights run kernel B at every row count;
-    W8A8 weights run kernel E where `w8a8_mlp_plan` admits them, and
-    otherwise this returns None (the caller runs the unfused branch)."""
+    W8A8 weights run kernel E where `w8a8_mlp_plan` admits them. Otherwise,
+    and for fp32 activations (the JAX package's rule, `layers.py:195`),
+    this returns None: the caller runs the unfused branch."""
     p = mlp_params
+    if not _cuda.kernel_dtype(x):
+        return None
     kw = dict(ln_scale=norm_params["scale"], ln_bias=norm_params["bias"],
               ln_mode="post" if postnorm else "pre", residual=True, eps=eps)
     if "fc1" in p and "kernel_w8a8" in p["fc1"]:

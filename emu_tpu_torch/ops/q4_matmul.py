@@ -73,6 +73,7 @@ def matmul_q4(x, packed, scale4, bias=None) -> torch.Tensor:
     of 128. Returns x's dtype."""
     if _cuda.on_cpu(x, "matmul_q4"):
         return matmul_q4_reference(x, packed, scale4, bias)
+    _cuda.refuse_grad("matmul_q4", x, scale4, bias)
     lead, k = x.shape[:-1], x.shape[-1]
     n, groups = packed.shape[-1], scale4.shape[-2]
     _cuda.require(x.dtype == torch.bfloat16 and packed.dtype == torch.int8,
@@ -177,6 +178,7 @@ def fused_swiglu_q4(x, rms_scale, gu_packed, gu_scale, dn_packed, dn_scale,
         return fused_swiglu_q4_reference(
             x, rms_scale, gu_packed, gu_scale, dn_packed, dn_scale, eps=eps,
             residual=residual, bf=bf)
+    _cuda.refuse_grad("fused_swiglu_q4", x, rms_scale, gu_scale, dn_scale)
     lead, d = x.shape[:-1], x.shape[-1]
     f = gu_packed.shape[-1] // 2
     gdt, gft = gu_scale.shape[-2], dn_scale.shape[-2]

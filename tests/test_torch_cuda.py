@@ -38,6 +38,27 @@ def assert_close(got, ref, tol=2e-2):
     assert err <= tol * (1 + ref.float().abs().max().item()), err
 
 
+def assert_close_blocks(got, ref, rel=1e-2, block=64):
+    """Backward outputs, whose size falls off along the sequence under a
+    causal mask: every block of `block` rows (dim -2; a vector is one row)
+    has ||got - ref||_F <= rel * ||ref||_F + 1e-6 * sqrt(n), so a block whose
+    reference is zero must come out zero (chip_smoke.compare_blocks)."""
+    got, ref = got.float(), ref.float()
+    assert bool(torch.isfinite(got).all())
+    if got.dim() == 1:
+        got, ref = got[None], ref[None]
+    pad = (-got.shape[-2]) % block
+
+    def blocks(t):
+        t = torch.nn.functional.pad(t, (0, 0, 0, pad))
+        return t.reshape(*t.shape[:-2], -1, block * t.shape[-1])
+
+    err = torch.linalg.vector_norm(blocks(got - ref), dim=-1)
+    size = torch.linalg.vector_norm(blocks(ref), dim=-1)
+    limit = rel * size + 1e-6 * (block * got.shape[-1]) ** 0.5
+    assert bool((err <= limit).all()), float((err / limit).max())
+
+
 def launched(wrapper, fn):
     before = wrapper.launches
     out = fn()
@@ -271,3 +292,93 @@ def test_decode_attention_refuses_unmet_constraints(gen):
                            v_new=kn)
     with pytest.raises(ValueError):        # Sq > 1 without k_new
         D.decode_attention(q[:, :4], kc, kc, valid, scale=1.0, layer=0)
+
+
+def _blind_rows(valid, sq, skv, causal):
+    """[B, Sq] rows that see no valid key (their lse is not compared)."""
+    first = torch.where(valid.any(1), valid.float().argmax(1),
+                        torch.full_like(valid[:, 0], skv, dtype=torch.long))
+    rows = torch.arange(sq, device=valid.device)[None]
+    lim = rows + (skv - sq) if causal else torch.full_like(rows, skv - 1)
+    return lim < first[:, None]
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal", [
+    (2, 4, 4, 200, 200, 128, True),     # tile skip; blocks with blind rows
+    (2, 4, 2, 70, 300, 64, True),       # Sq < Skv, GQA
+    (1, 2, 2, 130, 130, 88, False)])
+def test_attention_lse_kernel(gen, b, h, hkv, sq, skv, d, causal):
+    """Kernel A with its lse output (and the causal tile skip) against the
+    twin; the lse on the rows that see a key."""
+    q = randn(gen, b, h, sq, d)
+    k, v = randn(gen, b, hkv, skv, d), randn(gen, b, hkv, skv, d)
+    valid = torch.arange(skv, device="cuda")[None] >= (
+        torch.arange(b, device="cuda")[:, None] * 90)
+    args = (q, k, v, None, None, valid, d ** -0.5, causal, True)
+    out, lse = launched(A.attention, lambda: A._attention_fwd(*args))
+    ref, rlse = A.attention_reference(q, k, v, kv_valid=valid,
+                                      scale=d ** -0.5, causal=causal,
+                                      with_lse=True)
+    assert_close(out, ref)
+    seen = ~_blind_rows(valid, sq, skv, causal)[:, None].expand(-1, h, -1)
+    assert_close(lse[seen], rlse[seen], tol=1e-3)
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal", [
+    (2, 4, 4, 200, 200, 128, True),
+    (2, 4, 2, 70, 300, 64, True),
+    (1, 2, 1, 130, 130, 88, False)])
+def test_attention_backward_kernels(gen, b, h, hkv, sq, skv, d, causal):
+    """The dQ and dK/dV kernels against the twin (left-padded kv_valid, rows
+    that see no key, GQA, D = 88); dK/dV the same bits on a second run; the
+    autograd Function reaches them."""
+    q = randn(gen, b, h, sq, d)
+    k, v = randn(gen, b, hkv, skv, d), randn(gen, b, hkv, skv, d)
+    do = randn(gen, b, h, sq, d)
+    valid = torch.arange(skv, device="cuda")[None] >= (
+        torch.arange(b, device="cuda")[:, None] * 90)
+    o, lse = A._attention_fwd(q, k, v, None, None, valid, d ** -0.5, causal,
+                              True)
+    kw = dict(scale=d ** -0.5, causal=causal)
+    dq, d_row = launched(A.attention_bwd_dq, lambda: A.attention_bwd_dq(
+        q, k, v, o, lse, do, valid, **kw))
+    dk, dv = launched(A.attention_bwd_dkv, lambda: A.attention_bwd_dkv(
+        q, k, v, lse, do, d_row, valid, **kw))
+    ref = A.attention_bwd_reference(q, k, v, o, lse, do, valid, **kw)
+    for got, r in zip((dq, dk, dv), ref):
+        assert_close_blocks(got, r)
+    again = A.attention_bwd_dkv(q, k, v, lse, do, d_row, valid, **kw)
+    assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = A.attention_bwd_dkv.launches
+    out = A.attention(*leaves, kv_valid=valid, **kw)
+    out.backward(do)
+    assert A.attention_bwd_dkv.launches == before + 1
+    for leaf, r in zip(leaves, ref):
+        assert_close_blocks(leaf.grad, r)
+
+
+@pytest.mark.parametrize("rows,w,add", [(37, 5120, True), (300, 1000, False)])
+def test_rmsnorm_backward_kernel(gen, rows, w, add):
+    """The norm backward against its twin; dw the same bits twice."""
+    x, r = randn(gen, rows, w), (randn(gen, rows, w) if add else None)
+    wt = 1 + randn(gen, w, std=0.1)
+    y, _, rsig = C.rmsnorm_fwd(wt, x, r)
+    dh, dy = randn(gen, rows, w), (randn(gen, rows, w) if add else None)
+    dx, dw = launched(C.rmsnorm_bwd, lambda: C.rmsnorm_bwd(y, wt, rsig, dh,
+                                                           dy))
+    rdx, rdw = C.rmsnorm_bwd_reference(y, wt, rsig, dh, dy)
+    assert_close_blocks(dx, rdx)
+    assert_close_blocks(dw, rdw)
+    assert torch.equal(dw, C.rmsnorm_bwd(y, wt, rsig, dh, dy)[1])
+
+
+def test_inference_kernels_refuse_grad_on_card(gen):
+    """Kernel B has no backward: with inputs that require grad it raises
+    instead of returning a tensor that cuts the graph."""
+    x = randn(gen, 4, 32)
+    w = randn(gen, 32, 32).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        B.fused_mlp(x, w, None, w, None)
+    with torch.no_grad():
+        B.fused_mlp(x, w, None, w, None)
