@@ -77,7 +77,9 @@ CUDA card, or outside a checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import subprocess
 import sys
@@ -96,6 +98,21 @@ TRAIN_B, TRAIN_S, TRAIN_LR = 2, 1024, 5e-3
 # image generation: denoise steps of every pipeline request and of the
 # request served over HTTP
 GEN_STEPS, HTTP_GEN_STEPS = 50, 50
+# end-to-end figures of this run that kernels F and A move, filled by the
+# phases and printed together at the end beside the values earlier runs
+# measured with the first versions of F and A (PERF.md section 5)
+E2E: dict = {}
+_FIRST = "first F and A"
+EARLIER_E2E = {
+    "emu2 1 image + question, beam 5 prefill ms": (612.3, _FIRST),
+    "served mix int8 KV tok/s": (23.4, _FIRST),
+    "train ms/step": (1307.30, _FIRST + "; other runs 1677.97, 2058.70"),
+    "SDXL UNet ms/step": (145.68, _FIRST),
+    "SDXL UNet profiled kernel ms": (138.81, _FIRST),
+    "SD1.5 UNet ms/step": (42.60, _FIRST),
+    "SD1.5 UNet profiled kernel ms": (32.88, _FIRST),
+    "SwiGLU ViT img/s": (151.1, _FIRST),
+}
 
 
 def bound(nbytes: float, ops: float, kind: str = "bf16"):
@@ -111,6 +128,54 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def print_resources(log: str, lib) -> None:
+    """Registers, shared memory and spills of the kernels redesigned for
+    Hopper (A's forward, the W4A8 GEMM of F and G): `cuobjdump
+    --dump-resource-usage` on the built library (REG per thread, STACK
+    bytes, where spills land, static SHARED), ptxas's spill stores/loads
+    from the build log when this run built the library, and each kernel's
+    dynamic shared memory from its own plan. With setmaxnreg (F) REG is the
+    launch's allocation; the transform warps then hand some to the
+    consumers."""
+    import re
+    from emu_tpu_torch.ops import _cuda
+    cuobjdump = Path(_cuda._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "--dump-resource-usage",
+                          str(_cuda.library_path())], capture_output=True,
+                         text=True, check=True).stdout
+    spills, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for ([A-Za-z0-9_]+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            spills[cur] = f"{m.group(1)}/{m.group(2)} bytes spill stores/loads"
+    dyn = {"attention_kernelILi64ELi128": lib.emu_attention_smem(64),
+           "attention_kernelILi128ELi64": lib.emu_attention_smem(128),
+           "w4a8_gemm_kernelILi1E": lib.emu_w4a8_smem(1),
+           "w4a8_gemm_kernelILi2E": lib.emu_w4a8_smem(2)}
+    seen, name = set(), None
+    for line in out.splitlines():   # "Function <name>:" then its REG line
+        m = re.search(r"Function ([A-Za-z0-9_]+):", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)",
+                      line)
+        key = m and name and next((k for k in dyn if k in name), None)
+        if not key:
+            continue
+        seen.add(key)
+        print(f"  resources {key}: {m.group(1)} registers, {m.group(3)} + "
+              f"{dyn[key]} bytes shared (static + dynamic), stack "
+              f"{m.group(2)} B, local {m.group(4)} B; "
+              f"{spills.get(name, 'ptxas: library built before this run')}")
+    if seen != set(dyn):
+        raise AssertionError(f"resources: cuobjdump lists {sorted(seen)}")
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     import torch
     for _ in range(warmup):
@@ -124,6 +189,23 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """The card's kernel time of one call of fn (every kernel it launches,
+    summed by torch.profiler), without the host's share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3 / iters
 
 
 def compare(name: str, got, ref, atol: float, rtol: float) -> dict:
@@ -226,9 +308,14 @@ def check_kernels(card: str) -> dict:
         res["library_ms"] = None if library is None else cuda_ms(library)
         lib = ("none" if library is None
                else f"{res['library_ms']:.4f} ms")
-        print(f"  {name}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f}"
-              f" ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}), "
-              f"library {lib}  [{card}]")
+        # kernels A and F/G: also the device time alone, since at small
+        # shapes the events time the wrapper's host work
+        dev = (f", device {device_ms(kernel):.4f} ms"
+               if name.startswith(("attention", "cross", "matmul_q4",
+                                   "fused_swiglu")) else "")
+        print(f"  {name}: kernel {res['ms']:.4f} ms{dev}, plain "
+              f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+              f"({res['bound_by']}), library {lib}  [{card}]")
         results[name] = res
 
     def attn_cost(b, h, sq, skv, d, pairs=None):
@@ -260,6 +347,21 @@ def check_kernels(card: str) -> dict:
         lambda: A.attention_reference(q, k, v, kv_valid=valid,
                                       scale=128 ** -0.5, causal=True),
         1e-2, 1e-2, *attn_cost(8, 40, s, s, 128, pairs=s * (s + 1) // 2),
+        library=lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=amask, scale=128 ** -0.5))
+
+    # A3: Emu2-Chat's LLaMA-33B prefill as phase 7 runs it: one row of 330
+    # tokens, 52 heads of 128, causal, kv_valid all set
+    s = 330
+    q, k, v = (randn(1, 52, s, 128) for _ in range(3))
+    valid = torch.ones(1, s, dtype=torch.bool, device=dev)
+    amask = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    run("attention_causal_1x52x330x128",
+        lambda: A.attention(q, k, v, kv_valid=valid, scale=128 ** -0.5,
+                            causal=True),
+        lambda: A.attention_reference(q, k, v, kv_valid=valid,
+                                      scale=128 ** -0.5, causal=True),
+        1e-2, 1e-2, *attn_cost(1, 52, s, s, 128, pairs=s * (s + 1) // 2),
         library=lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=amask, scale=128 ** -0.5))
 
@@ -504,18 +606,28 @@ def check_kernels(card: str) -> dict:
     print("  fused_mlp_w8a8: two runs give the same bits at M = 2050, 4100")
     del w1, w2, q1, q2, wq, x4
     # F: int4 projections of LLaMA-33B: qkv and the lm_head (ragged N) at 5
-    # beam rows, gate_up at a 330-token prefill; library: torch.matmul on
-    # the weight dequantized to bf16 beforehand
-    for m, k, n, tag in ((5, 6656, 19968, "qkv"), (5, 6656, 32274, "lm_head"),
-                         (330, 6656, 35840, "gate_up")):
+    # beam rows; gate_up at a 330-token prefill, the engine's 32-row chunk,
+    # 17 rows and q4_plan's 1024-row edge; library: torch.matmul on the
+    # weight dequantized to bf16 beforehand
+    for k, n, tag, rows in ((6656, 19968, "qkv", (5,)),
+                            (6656, 32274, "lm_head", (5,)),
+                            (6656, 35840, "gate_up", (330, 17, 32, 1024))):
         p = Q.quantize_kernel_int4(randn(k, n, std=0.02))
         wd = Q.dequantize_int4(p, bf)
-        xm = randn(m, k)
-        run(f"matmul_q4_{tag}_{m}x{k}x{n}",
-            lambda: Q4.matmul_q4(xm, p["kernel_q4"], p["scale4"]),
-            lambda: Q4.matmul_q4_reference(xm, p["kernel_q4"], p["scale4"]),
-            1e-2, 1e-2, 2 * m * k + k * n / 2 + 4 * (k // 128) * n + 2 * m * n,
-            2 * m * k * n, "int8", library=lambda: torch.matmul(xm, wd))
+        for m in rows:
+            xm = randn(m, k)
+            run(f"matmul_q4_{tag}_{m}x{k}x{n}",
+                lambda: Q4.matmul_q4(xm, p["kernel_q4"], p["scale4"]),
+                lambda: Q4.matmul_q4_reference(xm, p["kernel_q4"],
+                                               p["scale4"]),
+                1e-2, 1e-2,
+                2 * m * k + k * n / 2 + 4 * (k // 128) * n + 2 * m * n,
+                2 * m * k * n, "int8", library=lambda: torch.matmul(xm, wd))
+            if not torch.equal(Q4.matmul_q4(xm, p["kernel_q4"], p["scale4"]),
+                               Q4.matmul_q4(xm, p["kernel_q4"], p["scale4"])):
+                raise AssertionError(f"matmul_q4 at {m} rows: two runs gave "
+                                     "different bits")
+        print(f"  matmul_q4: two runs give the same bits at M = {rows}")
         del p, wd
     # G: the int4 decode MLP of LLaMA-33B, D = 6656, F = 17920 (block 256)
     gu = Q.quantize_kernel_int4(randn(6656, 35840, std=0.02))
@@ -911,6 +1023,8 @@ def run_full(card: str, images) -> None:
         beams = ("" if st["beams"] == 1 else
                  f" ({st['rows'] * st['beams'] * steps / dec_s:.1f} beam "
                  f"hypothesis tok/s over {st['beams']} beams)")
+        E2E[f"emu1 {label} encode ms"] = st["encode_s"] * 1e3
+        E2E[f"emu1 {label} prefill ms"] = st["prefill_s"] * 1e3
         print(f"  {label}: images={st['images']} rows={st['rows']} "
               f"encode {st['encode_s'] * 1e3:.1f} ms, prefill "
               f"{st['prefill_s'] * 1e3:.1f} ms, decode "
@@ -1055,6 +1169,7 @@ def run_emu2_full(card: str, images) -> None:
         assert ids.shape == (1, MAX_NEW) and int(ids.max()) < vocab
         st = chat.last_stats
         steps = max(st["decode_steps"], 1)
+        E2E[f"emu2 {label} prefill ms"] = st["prefill_s"] * 1e3
         print(f"  {label}: images={st['images']} frames={st['frames']} "
               f"prompt={st['prompt_len']} encode {st['encode_s'] * 1e3:.1f} ms,"
               f" prefill {st['prefill_s'] * 1e3:.1f} ms, decode "
@@ -1293,6 +1408,7 @@ def run_train_full(card: str) -> None:
     for i, (a, o) in enumerate(zip(step_ms, opt_ms)):
         print(f"    step {i}: {a:.2f} ms = forward+backward {a - o:.2f} ms "
               f"+ optimizer {o:.2f} ms")
+    E2E["train ms/step"] = steady
     print(f"  steps 1-4: {steady:.2f} ms/step (forward+backward "
           f"{steady - steady_opt:.2f}, optimizer {steady_opt:.2f}), "
           f"{tokens / steady * 1e3:.1f} tokens/s ({TRAIN_B} x {TRAIN_S}); "
@@ -1550,6 +1666,11 @@ def profile_unet_step(card: str, pipe, lat: int, ctx_len: int,
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
+    unet_name = "SDXL" if lat == 128 else "SD1.5"
+    E2E[f"{unet_name} UNet ms/step"] = step_ms
+    E2E[f"{unet_name} UNet profiled kernel ms"] = busy
+    E2E[f"{unet_name} UNet kernel A ms"] = sum(
+        ms for name, ms in by_name.items() if "attention_kernel" in name)
     print(f"  one UNet step under torch.profiler: kernels {busy:.2f} ms "
           f"against {step_ms:.2f} ms unprofiled (busy {busy / step_ms:.2f})"
           f"  [{card}]")
@@ -1765,6 +1886,8 @@ def serve_mix(card: str, chat, draft, images, kv_quant: bool) -> dict:
     label = "int8 KV" if kv_quant else "bf16 KV (unjudged)"
     ms = {k: [s.elapsed_time(e) for s, e in v] for k, v in spans.items()}
     n_steps = len(ms["decode"]) + len(ms["mixed"])
+    E2E[f"served mix {'int8' if kv_quant else 'bf16'} KV tok/s"] = \
+        n_tokens[0] / wall
     print(f"  [{label}] {len(mix)} requests in {wall:.2f} s: engine "
           f"{len(ms['decode'])} decode + {len(ms['mixed'])} mixed steps, "
           f"{wall * 1e3 / max(n_steps, 1):.2f} ms per step (wall / steps), "
@@ -2017,6 +2140,7 @@ def run_swiglu_vit(card: str) -> None:
     ms = start.elapsed_time(end) / 3
     if out.shape != (32, 257, 1024) or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"swiglu vit: {tuple(out.shape)} or non-finite")
+    E2E["SwiGLU ViT img/s"] = 32e3 / ms
     print(f"  SwiGLU ViT (EVA02-CLIP-L widths, sub-LN off), 24 layers, batch "
           f"32 at 224 px: {ms:.2f} ms per forward, {32e3 / ms:.1f} img/s; "
           f"output finite  [{card}]")
@@ -2038,6 +2162,7 @@ KERNELS = [  # name, source, replaces, wrapper, checks (first one timed)
     ("attention", "emu_tpu_torch/csrc/attention.cu",
      "emu_tpu/ops/flash_attention.py:487", "A.attention",
      ["attention_vit_8x16x257x88", "attention_causal_8x40x80x128",
+      "attention_causal_1x52x330x128",
       "attention_vit_1x16x1025x112", "attention_causal_1x8x8192x128",
       "attention_noncausal_2x4096x10x64", "attention_noncausal_2x4096x8x40",
       "attention_noncausal_2x1024x20x64", "cross_2x4096x10x64_kv64",
@@ -2100,7 +2225,9 @@ KERNELS = [  # name, source, replaces, wrapper, checks (first one timed)
     ("matmul_q4", "emu_tpu_torch/csrc/q4_matmul.cu",
      "emu_tpu/ops/q4_matmul.py:91", "Q4.matmul_q4",
      ["matmul_q4_qkv_5x6656x19968", "matmul_q4_lm_head_5x6656x32274",
-      "matmul_q4_gate_up_330x6656x35840"]),
+      "matmul_q4_gate_up_330x6656x35840", "matmul_q4_gate_up_17x6656x35840",
+      "matmul_q4_gate_up_32x6656x35840",
+      "matmul_q4_gate_up_1024x6656x35840"]),
     ("fused_swiglu_q4", "emu_tpu_torch/csrc/q4_matmul.cu",
      "emu_tpu/ops/q4_matmul.py:295", "Q4.fused_swiglu_q4",
      ["fused_swiglu_q4_5x6656x17920", "fused_swiglu_q4_1x6656x17920"]),
@@ -2193,10 +2320,14 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    _cuda.build(verbose=True)
-    _cuda.library()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        _cuda.build(verbose=True)
+    print(log.getvalue(), end="")
+    lib = _cuda.library()
     print(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
           f"({_cuda.library_path().relative_to(ROOT)})")
+    print_resources(log.getvalue(), lib)
 
     print("[3] kernels vs plain twins (bf16, the paths' shapes)")
     res = check_kernels(card)
@@ -2285,6 +2416,11 @@ def main() -> int:
                 ["fused_dense_pre", "fused_dense_post", "mha_packed_qkv",
                  "batched_mha", "attention", "fused_mlp"],
                 run_vit_parts, card)[0])
+    print("  end-to-end figures, this run (earlier run, PERF.md section 5):")
+    for key, value in E2E.items():
+        was = EARLIER_E2E.get(key)
+        print(f"    {key}: {value:.2f}"
+              + (f" ({was[0]}, {was[1]})" if was else ""))
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

@@ -1,301 +1,382 @@
-// Kernel A: tiled attention over head-major [B, H, S, D] bf16 views.
+// Kernel A: the flash-attention forward over head-major [B, H, S, D] bf16
+// views, built for Hopper.
 //
 // Replaces the TPU kernels emu_tpu/ops/flash_attention.py:mha_bhsd (the
-// ViT-g self-attention, per-head q/v biases folded in, ragged S masked) and
+// ViT self-attention, per-head q/v biases folded in, ragged S masked),
 // flash_attention/_flash_short (end-aligned causal mask plus a [B, Skv]
-// kv_valid padding mask, the LLaMA prefill contract).
+// kv_valid padding mask, the LLaMA prefill contract, with the lse the
+// backward reads) and _flash_streaming (Skv > 4096: K/V stream through
+// tiles with an online softmax at every length).
 //
-// What bounds it on an H100: at ViT-g (S = 257, D = 88) and caption prefill
-// (S ~ 80, D = 128) the S x S logits are tiny, so the cost is the Q.K^T and
-// P.V products plus the softmax bookkeeping between them. The design keeps
-// the logits out of device memory: one block owns 64 query rows of one
-// (batch, head), walks K/V in 64-column tiles with an fp32 online softmax,
-// and runs both products on the tensor cores through WMMA (bf16 in, fp32
-// accumulate). D is zero-padded to a multiple of 16 in shared memory only,
-// so D = 88 costs no extra device traffic, and rows past S are masked here,
-// not padded by the caller. Inputs may be strided views (the last dim must
-// be contiguous), so the [B, S, 3, H, D] qkv projection is read in place.
+// What bounds it on an H100: the Q.K^T and P.V products (4 * S^2 * D flops
+// a head) at 989 TFLOP/s bf16; q, k, v and the output are read and
+// written once. The design keeps the logits, the probabilities and the
+// output accumulator in registers:
 //
-// Masked logits are set to -1e30 (not -inf): a fully masked row (a left-pad
-// query under causal + kv_valid) then averages V uniformly, finite, exactly
-// as the plain version does. Columns past Skv take no part at all.
+// - one block owns 128 query rows of one (batch, head): two consumer
+//   warpgroups of 64 rows each and one producer warp;
+// - the producer loads the Q tile once and keeps K/V tiles of BK keys in
+//   flight through TMA, STAGES deep behind mbarriers, with the tile's
+//   kv_valid column states written beside them;
+// - S = Q.K^T runs as wgmma (bf16, fp32 accumulate) from shared-memory
+//   descriptors; the online softmax (base 2) runs on the accumulator in
+//   its own register layout, each row's max and sum over the four threads
+//   that hold it;
+// - P becomes bf16 in registers and is the register A operand of the P.V
+//   wgmma, whose B operand is the V tile read N-major (the transposed-B
+//   form 16-bit types allow); the output accumulator stays in registers
+//   until the epilogue.
 //
-// Causal tile skip: a block visits only the K/V tiles that hold a column at
-// or left of its last row's diagonal, so a long causal prefill does about
-// half the rectangle's work. The one exception keeps the plain version's
-// semantics: a block holding a fully masked row (no valid key at or left of
-// its diagonal: qi + diag below the batch row's first valid key) visits
-// every tile, since that row's uniform average runs over all Skv columns.
-// Because K/V stream through 64-column tiles with an online softmax, the
-// same kernel also covers the TPU's streaming tier
-// (flash_attention.py:_flash_streaming, Skv > 4096) at any length.
+// Tensor maps span each view's four dims ([B, H, S, D] at its own strides,
+// so the packed qkv is read in place) with an inner extent of D and a box
+// of 64 columns, so TMA zero-fills the pad of D in {40, 80, 88, 112} and
+// the rows past S; no pad reaches device memory. The q bias is added to
+// the Q tile after it lands. The v bias is added to the normalised output
+// (every row's weights sum to 1, blind rows included): the twin adds it to
+// V in bf16, so the two differ by one bf16 rounding of v + bias, averaged.
+//
+// Masked logits are -1e30 (not -inf): a row that sees no valid key (a
+// left-pad query under causal + kv_valid) then averages V uniformly over
+// all Skv columns, finite, as the plain version does, and its lse is
+// -1e30 + log(Skv). Columns past Skv take no part at all. Causal tile
+// skip: a block visits only the tiles that hold a column at or left of its
+// last row's diagonal, unless a row of the block sees no valid key (it
+// averages every column).
 //
 // With `lse` non-null the kernel also writes each row's log-sum-exp
-// m + log(l) (fp32, [B, H, Sq]), the residual of the recompute-based
-// backward in attention_bwd.cu (the TPU's _flash_short(with_lse=True)).
-//
-// First version: fragments go through shared memory between the two
-// products. wgmma and TMA are later work.
+// m + log(l) (fp32, [B, H, Sq]), which attention_bwd.cu reads.
 
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
+#include <cuda_runtime.h>
 #include <math.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;     // query rows per block
-constexpr int BK = 64;     // key columns per tile
-constexpr int WARPS = 4;   // each warp owns 16 query rows
-constexpr int THREADS = WARPS * 32;
+constexpr int BQ = 128;         // query rows per block (two warpgroups)
+constexpr int STAGES = 3;       // K/V tiles in flight
+constexpr int THREADS = 2 * 128 + 32;
 constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct AttnArgs {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* q_bias;  // [H, D] or null
-  const __nv_bfloat16* v_bias;  // [Hkv, D] or null
+  const __nv_bfloat16* q_bias;    // [H, D] or null
+  const __nv_bfloat16* v_bias;    // [Hkv, D] or null
   const unsigned char* kv_valid;  // [B, Skv] (0 = masked) or null
   __nv_bfloat16* o;
   float* lse;                     // [B, H, Sq] or null
-  long long q_sb, q_sh, q_ss;
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
-  int H, rep, Sq, Skv, D, Dp;
+  int H, rep, Sq, Skv, D;
   float scale;
   int causal;
 };
 
-struct Layout {
-  int ldq, lds, ldp, ldo;
-  size_t q_off, k_off, v_off, s_off, p_off, o_off, st_off, col_off, total;
+// Shared memory of one block: Q [DP/64][BQ][64], each stage's K and V
+// [DP/64][BK][64] (bf16, rows of 128 bytes in the 128-byte swizzle), the
+// stages' column states, the barriers.
+template <int DP, int BK>
+struct AttnPlan {
+  static constexpr int CHUNKS = DP / 64;
+  static constexpr int Q_BYTES = CHUNKS * BQ * 128;
+  static constexpr int KV_BYTES = CHUNKS * BK * 128;  // one of K, V
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int COL_OFF = Q_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int BAR_OFF = COL_OFF + STAGES * BK;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
 };
 
-__host__ __device__ inline Layout make_layout(int Dp) {
-  Layout L;
-  L.ldq = Dp + 8;        // bf16 rows of Q, K, V tiles
-  L.lds = BK + 4;        // fp32 logits rows
-  L.ldp = BK + 8;        // bf16 probability rows
-  L.ldo = Dp + 4;        // fp32 output accumulator rows
-  size_t off = 0;
-  L.q_off = off; off += sizeof(__nv_bfloat16) * BQ * L.ldq;
-  L.k_off = off; off += sizeof(__nv_bfloat16) * BK * L.ldq;
-  L.v_off = off; off += sizeof(__nv_bfloat16) * BK * L.ldq;
-  L.s_off = off; off += sizeof(float) * WARPS * 16 * L.lds;
-  L.p_off = off; off += sizeof(__nv_bfloat16) * WARPS * 16 * L.ldp;
-  L.o_off = off; off += sizeof(float) * WARPS * 16 * L.ldo;
-  L.st_off = off; off += sizeof(float) * WARPS * 16 * 3;  // m, l, corr
-  L.col_off = off; off += sizeof(int) * BK;
-  L.total = off;
-  return L;
+template <int N>
+__device__ __forceinline__ void qk_wgmma(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
+  if constexpr (N == 64) wgmma_bf16_ss_n64(d, da, db, acc);
+  else wgmma_bf16_ss_n128(d, da, db, acc);
 }
 
-// Loads rows [r0, r0 + nrows) of one (b, h) plane into a [nrows, ldq] bf16
-// tile, adding an optional per-head bias, zero-filling d >= D and rows past
-// the sequence end.
-__device__ inline void load_tile(__nv_bfloat16* dst, int ldq, int nrows,
-                                 const __nv_bfloat16* src, long long ss,
-                                 int r0, int seq, int D, int Dp,
-                                 const __nv_bfloat16* bias) {
-  const int vec_per_row = Dp / 8;
-  for (int idx = threadIdx.x; idx < nrows * vec_per_row; idx += THREADS) {
-    const int r = idx / vec_per_row;
-    const int c8 = (idx % vec_per_row) * 8;
-    const int row = r0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row < seq && c8 < D) {
-      val = *reinterpret_cast<const uint4*>(src + row * ss + c8);
-      if (bias != nullptr) {
-        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          e[i] = __float2bfloat16(__bfloat162float(e[i]) +
-                                  __bfloat162float(bias[c8 + i]));
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * ldq + c8) = val;
-  }
+template <int N>
+__device__ __forceinline__ void pv_wgmma(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64) wgmma_bf16_rs_n64(d, a, db, 1);
+  else wgmma_bf16_rs_n128(d, a, db, 1);
 }
 
-__global__ void __launch_bounds__(THREADS) attention_kernel(AttnArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = make_layout(a.Dp);
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L.q_off);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + L.k_off);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + L.v_off);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* Sw = reinterpret_cast<float*>(smem + L.s_off) + warp * 16 * L.lds;
-  __nv_bfloat16* Pw =
-      reinterpret_cast<__nv_bfloat16*>(smem + L.p_off) + warp * 16 * L.ldp;
-  float* Ow = reinterpret_cast<float*>(smem + L.o_off) + warp * 16 * L.ldo;
-  float* st = reinterpret_cast<float*>(smem + L.st_off) + warp * 48;
-  float* m_s = st;
-  float* l_s = st + 16;
-  float* c_s = st + 32;
-  int* colstate = reinterpret_cast<int*>(smem + L.col_off);
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int DP, int BK>
+__global__ void __launch_bounds__(THREADS, 1)
+    attention_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap, const AttnArgs a) {
+  using Plan = AttnPlan<DP, BK>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* qs = smem;
+  unsigned char* colstate = smem + Plan::COL_OFF;
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(smem + Plan::BAR_OFF);
+  uint64_t* full = qfull + 1;
+  uint64_t* empty = full + STAGES;
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / a.rep;
-
-  const __nv_bfloat16* qp = a.q + b * a.q_sb + h * a.q_sh;
-  const __nv_bfloat16* kp = a.k + b * a.k_sb + hk * a.k_sh;
-  const __nv_bfloat16* vp = a.v + b * a.v_sb + hk * a.v_sh;
-  const __nv_bfloat16* qb = a.q_bias ? a.q_bias + h * a.D : nullptr;
-  const __nv_bfloat16* vb = a.v_bias ? a.v_bias + hk * a.D : nullptr;
-
-  load_tile(Qs, L.ldq, BQ, qp, a.q_ss, q0, a.Sq, a.D, a.Dp, qb);
-  for (int i = lane; i < 16 * L.ldo; i += 32) Ow[i] = 0.f;
-  if (lane < 16) {
-    m_s[lane] = -INFINITY;
-    l_s[lane] = 0.f;
-  }
   const int diag = a.Skv - a.Sq;
+  const bool kv = a.kv_valid != nullptr;
+
+  __shared__ int first_s;
+  if (threadIdx.x == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1 + (kv ? 32 : 0));
+      mbar_init(&empty[s], 256);
+    }
+    mbar_fence_init();
+    first_s = a.Skv;
+  }
+  __syncthreads();
   int n_tiles = (a.Skv + BK - 1) / BK;
   if (a.causal) {
     // first valid key of this batch row (Skv when there is none)
-    int first = 0;
-    if (a.kv_valid != nullptr) {
-      __shared__ int first_s;
-      if (threadIdx.x == 0) first_s = a.Skv;
-      __syncthreads();
+    if (kv) {
       for (int j = threadIdx.x; j < a.Skv; j += THREADS)
-        if (a.kv_valid[b * a.Skv + j]) {
+        if (a.kv_valid[static_cast<long long>(b) * a.Skv + j]) {
           atomicMin(&first_s, j);
           break;
         }
       __syncthreads();
-      first = first_s;
     }
+    const int first = kv ? first_s : 0;
     // skip the tiles right of the last row's diagonal unless a row of this
     // block sees no valid key (it averages all Skv columns)
     if (q0 + diag >= first) {
       const int last_col = q0 + BQ - 1 + diag;
-      n_tiles = min(n_tiles, last_col < 0 ? 0 : last_col / BK + 1);
+      n_tiles = min(n_tiles, last_col / BK + 1);
     }
   }
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int j0 = t * BK;
-    __syncthreads();  // previous tile's K/V fully consumed
-    load_tile(Ks, L.ldq, BK, kp, a.k_ss, j0, a.Skv, a.D, a.Dp, nullptr);
-    load_tile(Vs, L.ldq, BK, vp, a.v_ss, j0, a.Skv, a.D, a.Dp, vb);
-    for (int c = threadIdx.x; c < BK; c += THREADS) {
-      const int j = j0 + c;
-      int s = 2;  // past the end: no part in the softmax
-      if (j < a.Skv) s = (a.kv_valid == nullptr || a.kv_valid[b * a.Skv + j]) ? 1 : 0;
-      colstate[c] = s;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 8) {
+    // ---- producer warp ----
+    if (lane == 0) {
+      mbar_arrive_tx(qfull, Plan::Q_BYTES);
+      for (int c = 0; c < Plan::CHUNKS; ++c)
+        tma_load_4d(qs + c * BQ * 128, &qmap, qfull, c * 64, q0, h, b);
     }
-    __syncthreads();
-
-    // logits of this warp's 16 rows against the 64 columns
-    for (int jt = 0; jt < BK / 16; ++jt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int d0 = 0; d0 < a.Dp; d0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, Qs + warp * 16 * L.ldq + d0, L.ldq);
-        wmma::load_matrix_sync(fb, Ks + jt * 16 * L.ldq + d0, L.ldq);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(Sw + jt * 16, acc, L.lds, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax: two lanes per row, 32 columns each
-    {
-      const int r = lane >> 1;
-      const int half = lane & 1;
-      const int qi = q0 + warp * 16 + r;
-      float* srow = Sw + r * L.lds + half * 32;
-      float tmax = -INFINITY;
-      for (int i = 0; i < 32; ++i) {
-        const int c = half * 32 + i;
-        const int cs = colstate[c];
-        float s = srow[i] * a.scale;
-        if (cs == 2) {
-          s = -INFINITY;
-        } else {
-          bool keep = cs == 1;
-          if (a.causal && j0 + c > qi + diag) keep = false;
-          if (!keep) s = NEG;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % STAGES;
+      if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) + 1) & 1);
+      unsigned char* ks = smem + Plan::Q_BYTES + s * Plan::STAGE_BYTES;
+      const int j0 = i * BK;
+      if (lane == 0) {
+        mbar_arrive_tx(&full[s], Plan::STAGE_BYTES);
+        for (int c = 0; c < Plan::CHUNKS; ++c) {
+          tma_load_4d(ks + c * BK * 128, &kmap, &full[s], c * 64, j0, hk, b);
+          tma_load_4d(ks + Plan::KV_BYTES + c * BK * 128, &vmap, &full[s], c * 64, j0, hk, b);
         }
-        srow[i] = s;
-        tmax = fmaxf(tmax, s);
       }
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, tmax);
-      float sum = 0.f;
-      __nv_bfloat16* prow = Pw + r * L.ldp + half * 32;
-      for (int i = 0; i < 32; ++i) {
-        const float s = srow[i];
-        const float p = (s == -INFINITY) ? 0.f : expf(s - m_new);
-        sum += p;
-        prow[i] = __float2bfloat16(p);
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      __syncwarp();
-      if (half == 0) {
-        const float corr = expf(m_old - m_new);
-        c_s[r] = corr;
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
+      if (kv) {
+        // 1 attend, 0 masked, 2 past the end (no part in the softmax)
+        for (int c = lane; c < BK; c += 32) {
+          const int j = j0 + c;
+          colstate[s * BK + c] =
+              j < a.Skv ? (a.kv_valid[static_cast<long long>(b) * a.Skv + j] ? 1 : 0) : 2;
+        }
+        mbar_arrive(&full[s]);
       }
     }
-    __syncwarp();
-
-    // rescale the running output rows, then O += P V
-    for (int i = lane; i < 16 * a.Dp; i += 32) {
-      const int r = i / a.Dp;
-      const int c = i % a.Dp;
-      Ow[r * L.ldo + c] *= c_s[r];
-    }
-    __syncwarp();
-    for (int d0 = 0; d0 < a.Dp; d0 += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, Ow + d0, L.ldo, wmma::mem_row_major);
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, Pw + kk * 16, L.ldp);
-        wmma::load_matrix_sync(fb, Vs + kk * 16 * L.ldq + d0, L.ldq);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(Ow + d0, acc, L.ldo, wmma::mem_row_major);
-    }
-    __syncwarp();
+    return;
   }
 
-  if (a.lse != nullptr && lane < 16) {
-    const int row = q0 + warp * 16 + lane;
-    if (row < a.Sq)
-      a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + row] =
-          m_s[lane] + logf(l_s[lane]);
-  }
+  // ---- consumer warpgroups: 64 query rows each ----
+  const int wg = warp / 4, g = lane / 4, t = lane % 4;
+  const int r0 = q0 + wg * 64 + (warp % 4) * 16 + g;  // and r0 + 8
+  const float sl2 = a.scale * LOG2E;
 
-  // normalise and store this warp's rows, 8 values per 16-byte store
-  const int vec_per_row = a.D / 8;
-  __nv_bfloat16* op = a.o + b * a.o_sb + h * a.o_sh;
-  for (int i = lane; i < 16 * vec_per_row; i += 32) {
-    const int r = i / vec_per_row;
-    const int c8 = (i % vec_per_row) * 8;
-    const int row = q0 + warp * 16 + r;
-    if (row >= a.Sq) continue;
-    const float inv = 1.f / l_s[r];
-    uint4 val;
-    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
+  mbar_wait(qfull, 0);
+  if (a.q_bias != nullptr) {
+    // q + bias in bf16, as the twin rounds it, on this warpgroup's rows
+    const __nv_bfloat16* qb = a.q_bias + static_cast<long long>(h) * a.D;
+    for (int idx = threadIdx.x % 128; idx < 64 * (DP / 8); idx += 128) {
+      const int r = wg * 64 + idx / (DP / 8), cu = idx % (DP / 8);
+      if (cu * 8 >= a.D) continue;
+      uint4* p = reinterpret_cast<uint4*>(qs + (cu / 8) * BQ * 128 + r * 128 +
+                                          (((cu % 8) ^ (r % 8)) << 4));
+      uint4 val = *p;
+      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
 #pragma unroll
-    for (int u = 0; u < 8; ++u) e[u] = __float2bfloat16(Ow[r * L.ldo + c8 + u] * inv);
-    *reinterpret_cast<uint4*>(op + row * a.o_ss + c8) = val;
+      for (int i = 0; i < 8; ++i)
+        e[i] = __float2bfloat16(__bfloat162float(e[i]) + __bfloat162float(qb[cu * 8 + i]));
+      *p = val;
+    }
+    fence_async_smem();
+    named_barrier(1 + wg, 128);
   }
+
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const unsigned char* qa = qs + wg * 64 * 128;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES;
+    const int j0 = i * BK;
+    const unsigned char* ks = smem + Plan::Q_BYTES + s * Plan::STAGE_BYTES;
+    const unsigned char* vs = ks + Plan::KV_BYTES;
+    mbar_wait(&full[s], (i / STAGES) & 1);
+
+    float sacc[BK / 2];
+    fence_regs(sacc);
+    wgmma_fence();
+    // every 16-deep step of the padded width (the pad is zeros)
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const int off = (kk / 4) * BQ * 128 + (kk % 4) * 32;
+      const int koff = (kk / 4) * BK * 128 + (kk % 4) * 32;
+      qk_wgmma<BK>(sacc, smem_desc(qa + off, 16, 1024), smem_desc(ks + koff, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sacc);
+
+    // masks, scale (base 2), running max
+    const bool need_mask = kv || j0 + BK > a.Skv ||
+                           (a.causal && j0 + BK - 1 > q0 + wg * 64 + (warp % 4) * 16 + diag);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sacc[j * 4 + e] * sl2;
+        if (need_mask) {
+          const int c = j * 8 + 2 * t + (e & 1);
+          const int col = j0 + c;
+          const int st = kv ? colstate[s * BK + c] : (col < a.Skv ? 1 : 2);
+          const int qi = r0 + (e >= 2 ? 8 : 0);
+          if (st == 2) x = -INFINITY;
+          else if (st == 0 || (a.causal && col > qi + diag)) x = NEG;
+        }
+        sacc[j * 4 + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      float pj[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        pj[e] = exp2f(sacc[j * 4 + e] - m[e >> 1]);
+        l[e >> 1] += pj[e];
+      }
+      pa[j / 2][(j % 2) * 2 + 0] = pack_bf16(pj[0], pj[1]);
+      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(pj[2], pj[3]);
+    }
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j * 4 + e] *= corr[e >> 1];
+
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      pv_wgmma<DP>(o, pa[kk], smem_desc(vs + kk * 16 * 128, BK * 128, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if (a.lse != nullptr && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      // a blind row's logits are all NEG: NEG + log(l) in natural units,
+      // as the twin's logsumexp gives it
+      if (row < a.Sq)
+        a.lse[(static_cast<long long>(b) * a.H + h) * a.Sq + row] =
+            m[r] == NEG ? NEG + logf(l[r]) : (m[r] + log2f(l[r])) * 0.6931471805599453f;
+    }
+  }
+  __nv_bfloat16* op = a.o + b * a.o_sb + h * a.o_sh;
+  const __nv_bfloat16* vb =
+      a.v_bias != nullptr ? a.v_bias + static_cast<long long>(hk) * a.D : nullptr;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= a.Sq) continue;
+    const float inv = 1.f / l[r];
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = j * 8 + 2 * t;
+      if (col >= a.D) continue;
+      float y0 = o[j * 4 + 2 * r] * inv, y1 = o[j * 4 + 2 * r + 1] * inv;
+      if (vb != nullptr) {
+        y0 += __bfloat162float(vb[col]);
+        y1 += __bfloat162float(vb[col + 1]);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(op + row * a.o_ss + col) = __floats2bfloat162_rn(y0, y1);
+    }
+  }
+}
+
+// A 4-D map of a [B, H, S, D] view at its strides (elements), box 64 x rows.
+bool bhsd_map(CUtensorMap* map, const void* base, int B, int H, int S, int D, long long sb,
+              long long sh, long long ss, int rows) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(H), static_cast<uint64_t>(B)};
+  // a dim of extent 1 is never stepped: give it a stride the encoder takes;
+  // a broadcast (stride-0) dim of extent > 1 has no map
+  const long long raw[3] = {ss, sh, sb};
+  const uint64_t ext[3] = {static_cast<uint64_t>(S), static_cast<uint64_t>(H),
+                           static_cast<uint64_t>(B)};
+  uint64_t strides[3];
+  uint64_t prev = 2ULL * D;
+  for (int i = 0; i < 3; ++i) {
+    if (ext[i] > 1 && raw[i] <= 0) return false;
+    strides[i] = ext[i] == 1 ? prev : static_cast<uint64_t>(raw[i]) * 2;
+    prev = strides[i] * ext[i];
+  }
+  const uint32_t box[4] = {64, static_cast<uint32_t>(rows), 1, 1};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box);
+}
+
+template <int DP, int BK>
+cudaError_t launch_attention(const void* q, const void* k, const void* v, const AttnArgs& a,
+                             int B, int Hkv, long long q_sb, long long q_sh, long long q_ss,
+                             long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+                             long long v_sh, long long v_ss, cudaStream_t stream) {
+  using Plan = AttnPlan<DP, BK>;
+  CUtensorMap qmap, kmap, vmap;
+  if (!bhsd_map(&qmap, q, B, a.H, a.Sq, a.D, q_sb, q_sh, q_ss, BQ) ||
+      !bhsd_map(&kmap, k, B, Hkv, a.Skv, a.D, k_sb, k_sh, k_ss, BK) ||
+      !bhsd_map(&vmap, v, B, Hkv, a.Skv, a.D, v_sb, v_sh, v_ss, BK))
+    return cudaErrorInvalidValue;
+  auto kern = attention_kernel<DP, BK>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Plan::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Sq + BQ - 1) / BQ, a.H, B);
+  kern<<<grid, THREADS, Plan::SMEM, stream>>>(qmap, kmap, vmap, a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -309,29 +390,27 @@ extern "C" int emu_attention_fwd(
     long long o_sb, long long o_sh, long long o_ss,
     int B, int H, int Hkv, int Sq, int Skv, int D, float scale, int causal,
     void* stream) {
+  if (D % 8 || D > 128) return static_cast<int>(cudaErrorInvalidValue);
   AttnArgs a;
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const __nv_bfloat16*>(k);
-  a.v = static_cast<const __nv_bfloat16*>(v);
   a.q_bias = static_cast<const __nv_bfloat16*>(q_bias);
   a.v_bias = static_cast<const __nv_bfloat16*>(v_bias);
   a.kv_valid = static_cast<const unsigned char*>(kv_valid);
   a.o = static_cast<__nv_bfloat16*>(o);
   a.lse = static_cast<float*>(lse);
-  a.q_sb = q_sb; a.q_sh = q_sh; a.q_ss = q_ss;
-  a.k_sb = k_sb; a.k_sh = k_sh; a.k_ss = k_ss;
-  a.v_sb = v_sb; a.v_sh = v_sh; a.v_ss = v_ss;
   a.o_sb = o_sb; a.o_sh = o_sh; a.o_ss = o_ss;
   a.H = H; a.rep = H / Hkv; a.Sq = Sq; a.Skv = Skv; a.D = D;
-  a.Dp = (D + 15) / 16 * 16;
   a.scale = scale;
   a.causal = causal;
-  const Layout L = make_layout(a.Dp);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(L.total));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  attention_kernel<<<grid, THREADS, L.total, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      D <= 64 ? launch_attention<64, 128>(q, k, v, a, B, Hkv, q_sb, q_sh, q_ss, k_sb, k_sh,
+                                          k_ss, v_sb, v_sh, v_ss, s)
+              : launch_attention<128, 64>(q, k, v, a, B, Hkv, q_sb, q_sh, q_ss, k_sb, k_sh,
+                                          k_ss, v_sb, v_sh, v_ss, s);
+  return static_cast<int>(err);
+}
+
+// Dynamic shared memory of a block for head width d (chip_smoke prints it).
+extern "C" int emu_attention_smem(int d) {
+  return d <= 64 ? AttnPlan<64, 128>::SMEM : AttnPlan<128, 64>::SMEM;
 }

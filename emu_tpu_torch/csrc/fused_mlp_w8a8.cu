@@ -66,7 +66,7 @@ extern "C" int emu_fused_mlp_w8a8_fwd(const void* x, const void* w1, const void*
   a.M = M;
   a.N = F;
   a.K = K;
-  err = launch_gemm<false>(a, s);
+  err = launch_w8a8_gemm(a, s);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   block_requant_kernel<<<dim3(M, F / bf), 256, 0, s>>>(
@@ -86,7 +86,7 @@ extern "C" int emu_fused_mlp_w8a8_fwd(const void* x, const void* w1, const void*
   b.M = M;
   b.N = N;
   b.K = F;
-  err = launch_gemm<false>(b, s);
+  err = launch_w8a8_gemm(b, s);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   rows_epilogue_kernel<<<M, 256, 0, s>>>(

@@ -8,21 +8,17 @@
 // - rows_epilogue_kernel: one block per row: sum fp32 split slices in a
 //   fixed order, + bias, optional fp32 LayerNorm, optional residual, bf16;
 // - int8_gemm_kernel: an int8 tensor-core GEMM (mma.sync m16n8k32 s8 -> s32)
-//   over int8 activations [M, K] and either int8 weights [K, N] (W8A8) or
-//   fold-packed int4 weights [K/2, N] (W4A8), with the integer sums of each
-//   scale group / activation block folded into an fp32 accumulator with
-//   their scales, and a small epilogue (scales, bias, GELU, residual).
+//   over int8 activations [M, K] and int8 weights [K, N] (W8A8, kernel E),
+//   the integer sums of each activation block folded into an fp32
+//   accumulator with their scales, and a small epilogue (scales, bias,
+//   GELU, residual);
+// - GemmArgs, gemm_store and split_epilogue_kernel, which the W4A8 GEMM of
+//   kernels F and G (w4a8_gemm.cuh) shares.
 //
-// The GEMM is a plain first version: one 128-deep K tile at a time in
+// The W8A8 GEMM is a plain first version: one 128-deep K tile at a time in
 // shared memory (no pipelining), weights gathered one byte per thread
 // (neighbouring threads on neighbouring columns, so loads coalesce and any
-// N, even the lm_head's 32274, works) and written K-contiguous, the layout
-// mma's B operand wants. int4 nibbles are unpacked on the way into shared
-// memory and never reach device memory as wider values. At decode rows
-// (<= 16) a W4A8 GEMM also splits K over blockIdx.z, in whole scale groups,
-// so about a thousand blocks stream the weights: each split stores its
-// fp32 sums into its own slice of a workspace and split_epilogue_kernel
-// adds the slices in split order (the same bits on every run).
+// N works) and written K-contiguous, the layout mma's B operand wants.
 
 #pragma once
 
@@ -257,26 +253,22 @@ __device__ inline void mma_s8(int* d, const unsigned* a, const unsigned* b) {
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Block tile BM x BN = (WM * MI * 16) x (WN * NI * 8), WM * WN warps, each
-// warp MI x NI mma tiles. INT4: the two nibble planes of each packed tile
-// are two K tiles (x columns k and K/2 + k) with their own int32 sums.
-template <bool INT4, int WM, int WN, int MI, int NI>
+// The W8A8 GEMM. Block tile BM x BN = (WM * MI * 16) x (WN * NI * 8),
+// WM * WN warps, each warp MI x NI mma tiles.
+template <int WM, int WN, int MI, int NI>
 __global__ void __launch_bounds__(WM * WN * 32) int8_gemm_kernel(const GemmArgs p) {
-  constexpr int P = INT4 ? 2 : 1;
   constexpr int BM = WM * MI * 16, BN = WN * NI * 8, THREADS = WM * WN * 32;
   extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* As = reinterpret_cast<int8_t*>(smem);  // [P][BM][LDS], K-contiguous
-  int8_t* Bs = As + P * BM * LDS;                // [P][BN][LDS], K-contiguous
+  int8_t* As = reinterpret_cast<int8_t*>(smem);  // [BM][LDS], K-contiguous
+  int8_t* Bs = As + BM * LDS;                    // [BN][LDS], K-contiguous
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int wm = warp / WN, wn = warp % WN;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int half = p.K / 2;
-  const int it0 = blockIdx.z * p.tiles_per_split;
-  const int it1 = min((INT4 ? half : p.K) / KT, it0 + p.tiles_per_split);
+  const int n_tiles = p.K / KT;
   const long long ldw = p.N;
 
-  int acc[P][MI][NI][4];
+  int acc[MI][NI][4];
   float accf[MI][NI][4];
 #pragma unroll
   for (int i = 0; i < MI; ++i)
@@ -285,74 +277,58 @@ __global__ void __launch_bounds__(WM * WN * 32) int8_gemm_kernel(const GemmArgs 
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         accf[i][j][e] = 0.f;
-#pragma unroll
-        for (int pl = 0; pl < P; ++pl) acc[pl][i][j][e] = 0;
+        acc[i][j][e] = 0;
       }
 
-  for (int it = it0; it < it1; ++it) {
-    const int k0 = it * KT;  // W4A8: packed row; W8A8: K row
-    for (int v = threadIdx.x; v < P * BM * (KT / 16); v += THREADS) {
-      const int pl = v / (BM * (KT / 16));
-      const int rem = v % (BM * (KT / 16));
-      const int row = rem / (KT / 16), ch = rem % (KT / 16);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * KT;
+    for (int v = threadIdx.x; v < BM * (KT / 16); v += THREADS) {
+      const int row = v / (KT / 16), ch = v % (KT / 16);
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
       if (m0 + row < p.M)
         val = *reinterpret_cast<const uint4*>(
-            p.a + static_cast<long long>(m0 + row) * p.K + pl * half + k0 + ch * 16);
-      *reinterpret_cast<uint4*>(As + (pl * BM + row) * LDS + ch * 16) = val;
+            p.a + static_cast<long long>(m0 + row) * p.K + k0 + ch * 16);
+      *reinterpret_cast<uint4*>(As + row * LDS + ch * 16) = val;
     }
     for (int v = threadIdx.x; v < BN * (KT / 4); v += THREADS) {
       const int n = v % BN, r4 = v / BN;
-      unsigned lo = 0u, hi = 0u;
+      unsigned lo = 0u;
       if (n0 + n < p.N) {
         const int8_t* src = p.w + static_cast<long long>(k0 + r4 * 4) * ldw + n0 + n;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int byte = src[i * ldw];
-          if (INT4) {
-            lo |= static_cast<unsigned>(((byte & 15) - 8) & 0xFF) << (8 * i);
-            hi |= static_cast<unsigned>((byte >> 4) & 0xFF) << (8 * i);
-          } else {
-            lo |= static_cast<unsigned>(byte & 0xFF) << (8 * i);
-          }
-        }
+        for (int i = 0; i < 4; ++i)
+          lo |= static_cast<unsigned>(src[i * ldw] & 0xFF) << (8 * i);
       }
       *reinterpret_cast<unsigned*>(Bs + n * LDS + r4 * 4) = lo;
-      if (INT4) *reinterpret_cast<unsigned*>(Bs + (BN + n) * LDS + r4 * 4) = hi;
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < KT / 32; ++kk) {
+      unsigned af[MI][4], bfr[NI][2];
 #pragma unroll
-      for (int pl = 0; pl < P; ++pl) {
-        unsigned af[MI][4], bfr[NI][2];
-#pragma unroll
-        for (int i = 0; i < MI; ++i) {
-          const int8_t* base = As + (pl * BM + wm * MI * 16 + i * 16 + g) * LDS + kk * 32 + t * 4;
-          af[i][0] = *reinterpret_cast<const unsigned*>(base);
-          af[i][1] = *reinterpret_cast<const unsigned*>(base + 8 * LDS);
-          af[i][2] = *reinterpret_cast<const unsigned*>(base + 16);
-          af[i][3] = *reinterpret_cast<const unsigned*>(base + 8 * LDS + 16);
-        }
-#pragma unroll
-        for (int j = 0; j < NI; ++j) {
-          const int8_t* base = Bs + (pl * BN + wn * NI * 8 + j * 8 + g) * LDS + kk * 32 + t * 4;
-          bfr[j][0] = *reinterpret_cast<const unsigned*>(base);
-          bfr[j][1] = *reinterpret_cast<const unsigned*>(base + 16);
-        }
-#pragma unroll
-        for (int i = 0; i < MI; ++i)
-#pragma unroll
-          for (int j = 0; j < NI; ++j) mma_s8(acc[pl][i][j], af[i], bfr[j]);
+      for (int i = 0; i < MI; ++i) {
+        const int8_t* base = As + (wm * MI * 16 + i * 16 + g) * LDS + kk * 32 + t * 4;
+        af[i][0] = *reinterpret_cast<const unsigned*>(base);
+        af[i][1] = *reinterpret_cast<const unsigned*>(base + 8 * LDS);
+        af[i][2] = *reinterpret_cast<const unsigned*>(base + 16);
+        af[i][3] = *reinterpret_cast<const unsigned*>(base + 8 * LDS + 16);
       }
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        const int8_t* base = Bs + (wn * NI * 8 + j * 8 + g) * LDS + kk * 32 + t * 4;
+        bfr[j][0] = *reinterpret_cast<const unsigned*>(base);
+        bfr[j][1] = *reinterpret_cast<const unsigned*>(base + 16);
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j) mma_s8(acc[i][j], af[i], bfr[j]);
     }
     __syncthreads();
 
     // fold finished integer sums into the fp32 accumulator
     const int kend = k0 + KT;
-    const bool flush = INT4 ? (kend % p.gs == 0)
-                            : (kend % p.blk == 0 || it == it1 - 1);
-    if (!flush) continue;
+    if (kend % p.blk != 0 && it != n_tiles - 1) continue;
 #pragma unroll
     for (int i = 0; i < MI; ++i)
 #pragma unroll
@@ -362,27 +338,11 @@ __global__ void __launch_bounds__(WM * WN * 32) int8_gemm_kernel(const GemmArgs 
           const int row = min(m0 + wm * MI * 16 + i * 16 + g + (e >= 2 ? 8 : 0), p.M - 1);
           const int col = n0 + wn * NI * 8 + j * 8 + t * 2 + (e & 1);
           if (col < p.N) {
-            if (INT4) {
-              const int grp = k0 / p.gs;           // group pair of this tile
-              const int groups = p.K / p.gs;       // both planes
-              float sl = p.w_scale[static_cast<long long>(grp) * p.N + col];
-              float sh = p.w_scale[static_cast<long long>(groups / 2 + grp) * p.N + col];
-              if (p.blk_scale != nullptr) {
-                const float* sr = p.blk_scale + static_cast<long long>(row) * 2 * p.nblk;
-                const int b = (grp * p.gs) / p.blk;
-                sl = sr[b] * sl;
-                sh = sr[p.nblk + b] * sh;
-              }
-              accf[i][j][e] += static_cast<float>(acc[0][i][j][e]) * sl +
-                               static_cast<float>(acc[P - 1][i][j][e]) * sh;
-            } else {
-              const float sa = p.blk_scale == nullptr ? 1.f
-                  : p.blk_scale[static_cast<long long>(row) * p.nblk + k0 / p.blk];
-              accf[i][j][e] += static_cast<float>(acc[0][i][j][e]) * sa;
-            }
+            const float sa = p.blk_scale == nullptr ? 1.f
+                : p.blk_scale[static_cast<long long>(row) * p.nblk + k0 / p.blk];
+            accf[i][j][e] += static_cast<float>(acc[i][j][e]) * sa;
           }
-#pragma unroll
-          for (int pl = 0; pl < P; ++pl) acc[pl][i][j][e] = 0;
+          acc[i][j][e] = 0;
         }
   }
 
@@ -395,57 +355,27 @@ __global__ void __launch_bounds__(WM * WN * 32) int8_gemm_kernel(const GemmArgs 
         const int row = m0 + wm * MI * 16 + i * 16 + g + (e >= 2 ? 8 : 0);
         const int col = n0 + wn * NI * 8 + j * 8 + t * 2 + (e & 1);
         if (row >= p.M || col >= p.N) continue;
-        if (p.splits > 1)
-          p.ws[(static_cast<long long>(blockIdx.z) * p.M + row) * p.N + col] = accf[i][j][e];
-        else
-          gemm_store<INT4>(p, row, col, accf[i][j][e]);
+        gemm_store<false>(p, row, col, accf[i][j][e]);
       }
 }
 
-template <bool INT4, int WM, int WN, int MI, int NI>
+template <int WM, int WN, int MI, int NI>
 cudaError_t launch_gemm_tiles(const GemmArgs& a, cudaStream_t s) {
-  constexpr int P = INT4 ? 2 : 1;
   constexpr int BM = WM * MI * 16, BN = WN * NI * 8;
-  const int smem = P * (BM + BN) * LDS;
-  auto kern = int8_gemm_kernel<INT4, WM, WN, MI, NI>;
+  const int smem = (BM + BN) * LDS;
+  auto kern = int8_gemm_kernel<WM, WN, MI, NI>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, a.splits);
+  const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM);
   kern<<<grid, WM * WN * 32, smem, s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || a.splits == 1) return err;
-  const long long total = static_cast<long long>(a.M) * a.N;
-  const int blocks = static_cast<int>(total / 256 + 1 < 1024 ? total / 256 + 1 : 1024);
-  split_epilogue_kernel<INT4><<<blocks, 256, 0, s>>>(a);
   return cudaGetLastError();
 }
 
-constexpr int SMALL_BN = 64;  // the column tile at decode rows
-
-// K splits of a W4A8 GEMM: at most 16 rows, about 1024 blocks, each split a
-// whole number of scale-group pairs. The caller sizes the workspace by it.
-inline int w4a8_splits(int M, int N, int K, int gs) {
-  if (M > 16) return 1;
-  const int units = (K / 2) / gs;  // group pairs
-  const int ctas = (N + SMALL_BN - 1) / SMALL_BN;
-  int splits = (1024 + ctas - 1) / ctas;
-  splits = splits < 1 ? 1 : (splits > units ? units : splits);
-  const int per = (units + splits - 1) / splits;
-  return (units + per - 1) / per;
-}
-
-// Few rows (decode): 16 x 64 tiles, so more blocks stream the weights;
-// otherwise 64 x 128 tiles. W4A8 at few rows also splits K.
-template <bool INT4>
-cudaError_t launch_gemm(GemmArgs a, cudaStream_t s) {
-  const int n_tiles = (INT4 ? a.K / 2 : a.K) / KT;
-  a.splits = INT4 ? w4a8_splits(a.M, a.N, a.K, a.gs) : 1;
-  if (a.splits > 1 && a.ws == nullptr) return cudaErrorInvalidValue;
-  const int unit = INT4 ? a.gs / KT : 1;
-  const int units = n_tiles / unit;
-  a.tiles_per_split = (units + a.splits - 1) / a.splits * unit;
-  if (a.M <= 16) return launch_gemm_tiles<INT4, 1, 8, 1, 1>(a, s);
-  return launch_gemm_tiles<INT4, 2, 4, 2, 4>(a, s);
+// The W8A8 GEMM (kernel E's two products): few rows (<= 16) in 16 x 64
+// tiles, so more blocks stream the weights; otherwise 64 x 128 tiles.
+inline cudaError_t launch_w8a8_gemm(const GemmArgs& a, cudaStream_t s) {
+  if (a.M <= 16) return launch_gemm_tiles<1, 8, 1, 1>(a, s);
+  return launch_gemm_tiles<2, 4, 2, 4>(a, s);
 }
 
 inline GemmArgs gemm_args() {

@@ -2,14 +2,16 @@
 //
 // F replaces emu_tpu/ops/q4_matmul.py:matmul_q4: y = x @ dequant(W) (+ b)
 // reading only the packed bytes. Activations are quantized to int8 per row
-// over all of K (quant_rows_kernel); each 128-row scale group of each
-// nibble plane contributes an exact s8 x s4 integer dot on the tensor cores
-// (int8_gemm_kernel, int8_mma.cuh), scaled by its per-(group, column) scale
-// into an fp32 sum; the per-row activation scale and the bias apply last.
-// Packed row i holds input row i in the low nibble (value + 8) and input
-// row i + K/2 in the high nibble (two's complement); the nibbles are
-// unpacked to signed bytes on the way into shared memory, so the integer
-// sums are the TPU kernel's (whose low-plane -8 folds in as 8 * rowsum).
+// over all of K (quant_rows_kernel); each 128-row tile of each nibble
+// plane contributes an exact s8 x s4 integer dot on the tensor cores
+// (w4a8_gemm_kernel, w4a8_gemm.cuh: wgmma s8, fed by a TMA + cp.async
+// ring and a transform warpgroup that unpacks the nibbles K-major), scaled
+// by its per-(group, column) scale into an fp32 sum; the per-row
+// activation scale and the bias apply last. Packed row i holds input row i
+// in the low nibble (value + 8) and input row i + K/2 in the high nibble
+// (two's complement); the nibbles become signed bytes in shared memory, so
+// the integer sums are the TPU kernel's (whose low-plane -8 folds in as
+// 8 * rowsum).
 //
 // G replaces emu_tpu/ops/q4_matmul.py:fused_swiglu_q4, the decode MLP
 // x + down(silu(gate(rms(x))) * up(rms(x))) with the fused gate|up layout:
@@ -24,18 +26,25 @@
 // hundred KB at decode) pass through device memory.
 //
 // What bounds them on an H100: at decode (1-32 rows) the weight bytes
-// (int4: half a byte per weight; 16.5 GB for LLaMA-33B) against 3.35 TB/s.
-// This first version gathers the packed bytes one per thread and has no
-// load pipelining, so it sits well below that; at decode rows it splits K
-// so about a thousand blocks keep loads in flight. Prefill (a few hundred
-// rows) runs 64-row tiles.
+// (int4: half a byte per weight; 16.5 GB for LLaMA-33B) against 3.35 TB/s;
+// the ring keeps 64 KB of weights in flight per SM and K is split until
+// about two waves of blocks stream them. At prefill (a few hundred rows)
+// the int8 tensor-core rate (1979 TOP/s): 128 x 128 tiles, two consumer
+// warpgroups issuing wgmma m64n128k32 while the transform warpgroup
+// unpacks the next tile.
 
-#include "int8_mma.cuh"
+#include "w4a8_gemm.cuh"
 
 // K splits of a W4A8 product at M rows: the caller's workspace for F (and
 // each of G's two products) is an fp32 [splits, M, N] buffer when > 1.
 extern "C" int emu_w4a8_splits(int M, int N, int K, int gs) {
-  return w4a8_splits(M, N, K, gs);
+  return w4a8_split_count(M, N, K, gs);
+}
+
+// Dynamic shared memory of a block of the W4A8 GEMM with cw consumer
+// warpgroups (chip_smoke prints it).
+extern "C" int emu_w4a8_smem(int cw) {
+  return cw == 1 ? W4Plan<1>::SMEM : W4Plan<2>::SMEM;
 }
 
 extern "C" int emu_matmul_q4_fwd(const void* x, const void* packed, const void* scale4,
@@ -60,7 +69,7 @@ extern "C" int emu_matmul_q4_fwd(const void* x, const void* packed, const void* 
   a.N = N;
   a.K = K;
   a.gs = gs;
-  return static_cast<int>(launch_gemm<true>(a, s));
+  return static_cast<int>(launch_w4a8(a, s));
 }
 
 // Scratch the caller allocates: xq [M, D] int8, sx [M] fp32, gu [M, 2F]
@@ -94,7 +103,7 @@ extern "C" int emu_fused_swiglu_q4_fwd(const void* x, const void* rms, const voi
   a.N = 2 * F;
   a.K = D;
   a.gs = gs_d;
-  err = launch_gemm<true>(a, s);
+  err = launch_w4a8(a, s);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   block_requant_kernel<<<dim3(M, F / bf), 256, 0, s>>>(
@@ -117,5 +126,5 @@ extern "C" int emu_fused_swiglu_q4_fwd(const void* x, const void* rms, const voi
   b.N = D;
   b.K = F;
   b.gs = gs_f;
-  return static_cast<int>(launch_gemm<true>(b, s));
+  return static_cast<int>(launch_w4a8(b, s));
 }

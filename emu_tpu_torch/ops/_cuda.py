@@ -39,6 +39,8 @@ SIGNATURES = {
     "emu_fused_mlp_w8a8_fwd": [_P] * 9 + [_I, _I, _F] + [_P] * 7 + [_I] * 5
                               + [_P],
     "emu_w4a8_splits": [_I] * 4,
+    "emu_w4a8_smem": [_I],
+    "emu_attention_smem": [_I],
     "emu_matmul_q4_fwd": [_P] * 8 + [_I] * 4 + [_P],
     "emu_fused_swiglu_q4_fwd": [_P] * 13 + [_I] * 6 + [_F, _I, _P],
     "emu_add_rmsnorm_fwd": [_P] * 6 + [_I, _I, _F, _P],

@@ -67,15 +67,27 @@ def attention_reference(q, k, v, q_bias=None, v_bias=None, *, kv_valid=None,
     return out.transpose(1, 2)
 
 
-def _check_bhsd(wrapper, *tensors):
+def _check_bhsd(wrapper, *tensors, maps: bool = False):
+    """bf16 views on one device with a contiguous last dim and 16-byte
+    aligned strides and base; with `maps` (kernel A's tensor maps) no
+    broadcast (stride-0) dim of extent > 1. Messages are built only on
+    failure: this runs on every call."""
+    dev = tensors[0][1].device
     for tname, t in tensors:
-        _cuda.require(t.dtype == torch.bfloat16,
-                      f"{wrapper}: {tname} must be bfloat16")
-        _cuda.require(t.device == tensors[0][1].device and t.stride(-1) == 1
-                      and all(s % 8 == 0 for s in t.stride()[:3])
-                      and t.data_ptr() % 16 == 0,
-                      f"{wrapper}: {tname} needs a contiguous, 16-byte aligned"
-                      " last dim")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{wrapper}: {tname} must be bfloat16")
+        st = t.stride()
+        if not (t.device == dev and st[-1] == 1
+                and all(s % 8 == 0 for s in st[:3])
+                and t.data_ptr() % 16 == 0):
+            raise ValueError(
+                f"{wrapper}: {tname} {tuple(t.shape)} strides {st} needs a "
+                "contiguous last dim and 16-byte aligned strides and base")
+        if maps and any(s == 0 and n > 1 for n, s in zip(t.shape, st[:3])):
+            raise ValueError(
+                f"{wrapper}: {tname} {tuple(t.shape)} strides {st} "
+                "broadcasts a dim (stride 0), which the kernel's tensor maps "
+                "cannot step: pass .contiguous()")
 
 
 def _attention_fwd(q, k, v, q_bias, v_bias, kv_valid, scale: float,
@@ -90,20 +102,20 @@ def _attention_fwd(q, k, v, q_bias, v_bias, kv_valid, scale: float,
     _cuda.refuse_grad("attention", q, k, v, q_bias, v_bias)
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    _cuda.require(k.shape == v.shape == (b, hkv, skv, d) and h % hkv == 0,
-                  f"attention: bad shapes q{tuple(q.shape)} k{tuple(k.shape)}"
-                  f" v{tuple(v.shape)}")
-    _cuda.require(d % 8 == 0 and d <= A_MAX_D and sq >= 1 and skv >= 1,
-                  f"attention: head dim {d} must be a multiple of 8, <= "
-                  f"{A_MAX_D}")
-    _check_bhsd("attention", ("q", q), ("k", k), ("v", v))
+    if not (k.shape == v.shape == (b, hkv, skv, d) and h % hkv == 0):
+        raise ValueError(f"attention: bad shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    if not (d % 8 == 0 and d <= A_MAX_D and sq >= 1 and skv >= 1):
+        raise ValueError(f"attention: head dim {d} must be a multiple of 8,"
+                         f" <= {A_MAX_D}")
+    _check_bhsd("attention", ("q", q), ("k", k), ("v", v), maps=True)
     if q_bias is not None:
         q_bias = q_bias.to(torch.bfloat16).reshape(h, d).contiguous()
     if v_bias is not None:
         v_bias = v_bias.to(torch.bfloat16).reshape(hkv, d).contiguous()
     if kv_valid is not None:
-        _cuda.require(kv_valid.shape == (b, skv),
-                      f"attention: kv_valid must be [{b}, {skv}]")
+        if kv_valid.shape != (b, skv):
+            raise ValueError(f"attention: kv_valid must be [{b}, {skv}]")
         kv_valid = kv_valid.to(device=q.device, dtype=torch.bool).contiguous()
     out = torch.empty(b, sq, h, d, device=q.device, dtype=q.dtype
                       ).transpose(1, 2)
@@ -324,7 +336,8 @@ def attention(q, k, v, q_bias=None, v_bias=None, *,
     """softmax(scale * (q + q_bias) kᵀ, masked) (v + v_bias) → [B, H, Sq, D].
 
     q [B, H, Sq, D], k/v [B, Hkv, Skv, D]: any strides with a contiguous
-    last dim (views of a [B, S, 3, H, D] projection are read in place).
+    last dim (views of a [B, S, 3, H, D] projection are read in place); on
+    CUDA, 16-byte multiples and no broadcast (stride-0) dim.
     The causal mask is aligned to the end of the keys (query i sees key j
     iff j <= i + Skv - Sq). On CUDA the output's memory is [B, Sq, H, D],
     returned as its [B, H, Sq, D] view. Differentiable in q, k, v and the

@@ -14,7 +14,8 @@ one CFG batch of 2, it prints:
   of its first level with attention, [2·4096, C] → C): host µs a call (no
   synchronisation between calls) and device ms, for `ops.layers.dense`
   (whatever route the tree takes) and for the fp32 composition
-  `x.float() @ w.float() + b`;
+  `x.float() @ w.float() + b`; the same for kernel A
+  (`ops.flash_attention.attention`) on that level's self-attention;
 - the step: ms/step from CUDA events around back-to-back forwards; host
   ms/step, the time `unet.forward` takes to return on an idle card (all
   its launches queued); then one step under torch.profiler: kernel time
@@ -70,6 +71,7 @@ def profile_model(name: str, out=print) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from emu_tpu_torch.config import UNetConfig
     from emu_tpu_torch.diffusion import unet
+    from emu_tpu_torch.ops import flash_attention as A
     from emu_tpu_torch.ops import layers as L
 
     make, lat, ctx_len = MODELS[name]
@@ -94,22 +96,29 @@ def profile_model(name: str, out=print) -> dict:
     dp = {"kernel": (torch.randn(c, c, device=dev, generator=gen) * c ** -0.5
                      ).to(bf),
           "bias": torch.randn(c, device=dev, generator=gen).to(bf)}
+    heads = cfg.attention_head_dim[i]
+    qkv = torch.randn(3, 2, heads, (lat >> i) ** 2, c // heads, device=dev,
+                      generator=gen).to(bf)
     res = {"model": name, "latent": lat, "context": [2, ctx_len,
                                                      cfg.cross_attention_dim],
-           "dense_shape": [dx.shape[0], c, c]}
+           "dense_shape": [dx.shape[0], c, c],
+           "attention_shape": list(qkv.shape[1:])}
 
     def fwd():
         return unet.forward(params, cfg, x, ts, ctx, **kw)
 
     with torch.inference_mode():
-        for key, fn in (
-                ("dense", lambda: L.dense(dp, dx)),
-                ("fp32_composition", lambda: (L._matmul_f32(
-                    dx, dp["kernel"]) + dp["bias"].float()).to(bf))):
+        shape = f"[{dx.shape[0]}, {c}] -> {c}"
+        for key, label, fn in (
+                ("dense", shape, lambda: L.dense(dp, dx)),
+                ("fp32_composition", shape, lambda: (L._matmul_f32(
+                    dx, dp["kernel"]) + dp["bias"].float()).to(bf)),
+                ("attention", "x".join(map(str, qkv.shape[1:])),
+                 lambda: A.attention(*qkv, scale=(c // heads) ** -0.5))):
             host, ms = host_and_device(fn, DENSE_CALLS)
             res[f"{key}_host_us"], res[f"{key}_device_ms"] = host, ms
-            out(f"  {key} [{dx.shape[0]}, {c}] -> {c}: host {host:.1f} us a "
-                f"call, device {ms:.4f} ms a call")
+            out(f"  {key} {label}: host {host:.1f} us a call, device "
+                f"{ms:.4f} ms a call")
         _, ms = host_and_device(fwd, STEPS)
         issue = []
         for _ in range(STEPS):

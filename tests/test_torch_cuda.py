@@ -71,6 +71,9 @@ def launched(wrapper, fn):
     (2, 4, 4, 70, 70, 88, False, True),
     (3, 4, 2, 33, 130, 64, True, False),
     (1, 2, 1, 1, 65, 128, True, False),
+    (2, 3, 3, 200, 200, 40, True, True),
+    (2, 2, 1, 150, 333, 80, True, False),
+    (1, 4, 4, 257, 257, 112, False, True),
 ])
 def test_attention_kernel(gen, b, h, hkv, sq, skv, d, causal, bias):
     q = randn(gen, b, h, sq, d)
@@ -238,6 +241,49 @@ def test_emu2_chat_fp32_decode_step_on_the_card(gen):
         torch.cuda.empty_cache()
 
 
+@pytest.mark.parametrize("form", ["cross_4096x64", "self_4096", "packed_qkv",
+                                  "blind_block"])
+def test_attention_kernel_forms(gen, form):
+    """Kernel A without kv_valid at the UNets' shapes (4096 latent queries
+    against 64 conditioning keys; 4096-token self-attention), on strided
+    planes of one packed [B, S, 3, H, D] projection, and with a block of
+    128 query rows that all see no valid key (causal + left padding)."""
+    if form == "cross_4096x64":
+        q = randn(gen, 2, 10, 4096, 64)
+        k, v = randn(gen, 2, 10, 64, 64), randn(gen, 2, 10, 64, 64)
+        kw = dict(scale=64 ** -0.5)
+    elif form == "self_4096":
+        q, k, v = (randn(gen, 1, 2, 4096, 64) for _ in range(3))
+        kw = dict(scale=64 ** -0.5)
+    elif form == "packed_qkv":
+        qkv = randn(gen, 2, 300, 3, 4, 88)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        kw = dict(scale=88 ** -0.5)
+    else:
+        q, k, v = (randn(gen, 2, 2, 300, 128) for _ in range(3))
+        valid = torch.arange(300, device="cuda")[None] >= torch.tensor(
+            [[0], [200]], device="cuda")
+        kw = dict(kv_valid=valid, scale=128 ** -0.5, causal=True)
+    got = launched(A.attention, lambda: A.attention(q, k, v, **kw))
+    assert_close(got, A.attention_reference(q, k, v, **kw))
+
+
+def test_attention_kernel_refuses_broadcast_kv(gen):
+    """A k/v view broadcast over batch (stride 0, as `expand` makes it)
+    has no tensor map: the wrapper raises, and launches nothing, rather
+    than read other memory; the same values made contiguous run."""
+    q = randn(gen, 2, 4, 70, 64)
+    k, v = randn(gen, 1, 4, 70, 64), randn(gen, 1, 4, 70, 64)
+    kx, vx = k.expand(2, -1, -1, -1), v.expand(2, -1, -1, -1)
+    before = A.attention.launches
+    with pytest.raises(ValueError, match="stride 0"):
+        A.attention(q, kx, vx, scale=0.125)
+    assert A.attention.launches == before
+    got = launched(A.attention, lambda: A.attention(
+        q, kx.contiguous(), vx.contiguous(), scale=0.125))
+    assert_close(got, A.attention_reference(q, kx, vx, scale=0.125))
+
+
 @pytest.mark.parametrize("m,f,bias", [(37, 160, True), (300, 1024, False)])
 def test_fused_mlp_post_ln_kernel(gen, m, f, bias):
     """Kernel B's post-LN form: x + LN(fc2(gelu(fc1 x))); same bits twice."""
@@ -278,11 +324,16 @@ def test_fused_mlp_w8a8_kernel(gen, m, ln_mode):
 
 @pytest.mark.parametrize("m,k,n,bias", [(5, 512, 200, True),
                                         (40, 1024, 256, False),
-                                        (3, 768, 32274, False)])
+                                        (3, 768, 32274, False),
+                                        (64, 1024, 384, True),
+                                        (65, 1024, 384, False),
+                                        (330, 768, 32274, True),
+                                        (1024, 1024, 520, False)])
 def test_matmul_q4_kernel(gen, m, k, n, bias):
-    """Kernel F: decode (16-row tiles, K split) and prefill (64-row tiles)
-    shapes, ragged N as the lm_head's 32274, groups of 128 and 384; the
-    same bits on a second run."""
+    """Kernel F: both tile plans (one consumer warpgroup up to 64 rows,
+    with K split when the grid is short; two from 65), at 330 and 1024
+    rows, ragged N as the lm_head's 32274 (rows not 16-byte aligned) and
+    520, groups of 128 and 384; the same bits on a second run."""
     gs = 384 if k == 768 else 128
     p = Q.quantize_kernel_int4(randn(gen, k, n, std=0.05), group_size=gs)
     x, b = randn(gen, m, k), (randn(gen, n) if bias else None)
@@ -424,7 +475,7 @@ def test_decode_attention_refuses_unmet_constraints(gen):
 
 
 def _blind_rows(valid, sq, skv, causal):
-    """[B, Sq] rows that see no valid key (their lse is not compared)."""
+    """[B, Sq] rows that see no valid key."""
     first = torch.where(valid.any(1), valid.float().argmax(1),
                         torch.full_like(valid[:, 0], skv, dtype=torch.long))
     rows = torch.arange(sq, device=valid.device)[None]
@@ -435,10 +486,14 @@ def _blind_rows(valid, sq, skv, causal):
 @pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal", [
     (2, 4, 4, 200, 200, 128, True),     # tile skip; blocks with blind rows
     (2, 4, 2, 70, 300, 64, True),       # Sq < Skv, GQA
-    (1, 2, 2, 130, 130, 88, False)])
+    (1, 2, 2, 130, 130, 88, False),
+    (2, 2, 2, 300, 300, 40, True),
+    (1, 2, 1, 130, 260, 80, True),
+    (2, 2, 2, 200, 200, 112, False)])
 def test_attention_lse_kernel(gen, b, h, hkv, sq, skv, d, causal):
     """Kernel A with its lse output (and the causal tile skip) against the
-    twin; the lse on the rows that see a key."""
+    twin; the lse on the rows that see a key within 1e-3, and on the rows
+    that see none (-1e30 + log Skv) to the bit."""
     q = randn(gen, b, h, sq, d)
     k, v = randn(gen, b, hkv, skv, d), randn(gen, b, hkv, skv, d)
     valid = torch.arange(skv, device="cuda")[None] >= (
@@ -451,6 +506,7 @@ def test_attention_lse_kernel(gen, b, h, hkv, sq, skv, d, causal):
     assert_close(out, ref)
     seen = ~_blind_rows(valid, sq, skv, causal)[:, None].expand(-1, h, -1)
     assert_close(lse[seen], rlse[seen], tol=1e-3)
+    assert torch.equal(lse[~seen], rlse[~seen])
 
 
 @pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal", [

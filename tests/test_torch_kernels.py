@@ -51,10 +51,16 @@ def test_mha_bhsd_twin_matches_pallas(s, h, d):
     close(out, ref)
 
 
-@pytest.mark.parametrize("sq,skv,hkv", [(16, 16, 2), (8, 24, 2), (16, 16, 1)])
-def test_flash_attention_twin_matches_pallas(sq, skv, hkv):
+@pytest.mark.parametrize("sq,skv,hkv,causal", [
+    pytest.param(16, 16, 2, True, id="16-16-2"),
+    pytest.param(8, 24, 2, True, id="8-24-2"),
+    pytest.param(16, 16, 1, True, id="16-16-1"),
+    pytest.param(40, 8, 2, False, id="40-8-2-noncausal")])
+def test_flash_attention_twin_matches_pallas(sq, skv, hkv, causal):
     """Causal (end-aligned) + left-padded kv_valid; GQA (hkv < h) against
-    the JAX grouped path, MHA also against the Pallas kernel."""
+    the JAX grouped path, MHA also against the Pallas kernel; and the
+    UNets' form, non-causal with Sq >> Skv (latent queries against a few
+    conditioning keys)."""
     rng = np.random.default_rng(1)
     b, h, d = 2, 2, 32
     q = rnd(rng, b, sq, h, d)
@@ -62,20 +68,21 @@ def test_flash_attention_twin_matches_pallas(sq, skv, hkv):
     valid = np.ones((b, skv), np.int32)
     valid[1, :5] = 0
     out = fa.flash_attention(t(q), t(k), t(v), kv_valid=t(valid),
-                             scale=d ** -0.5, causal=True)
+                             scale=d ** -0.5, causal=causal)
     # the plain XLA path of the JAX package, every row (fully masked too)
     xla = (jatt._xla_attention if hkv == h else jatt._xla_attention_gqa)(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None, None,
-        jnp.asarray(valid), d ** -0.5, True)
+        jnp.asarray(valid), d ** -0.5, causal)
     close(out, xla)
     if hkv == h:
         ref = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
                                   jnp.asarray(v), kv_valid=jnp.asarray(valid),
-                                  scale=d ** -0.5, causal=True,
+                                  scale=d ** -0.5, causal=causal,
                                   interpret=True)
         # rows with at least one visible key (the Pallas kernel's fully
         # masked rows are not defined to match)
-        rows = np.arange(sq) + (skv - sq) >= 5
+        rows = (np.arange(sq) + (skv - sq) >= 5 if causal
+                else np.ones(sq, bool))
         close(out[1][rows], np.asarray(ref)[1][rows])
         close(out[0], np.asarray(ref)[0])
 

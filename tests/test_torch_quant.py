@@ -195,9 +195,11 @@ def test_fused_mlp_w8a8_twin_matches_pallas(ln_mode):
     assert not torch.equal(whole, out)
 
 
-@pytest.mark.parametrize("m,n", [(5, 200), (40, 256)])
+@pytest.mark.parametrize("m,n", [(5, 200), (40, 256), (16, 200),
+                                 (17, 256)])
 def test_matmul_q4_twin_matches_pallas(m, n):
-    """Kernel F: groups of 128, ragged N (as the lm_head's 32274), bias."""
+    """Kernel F: groups of 128, ragged N (as the lm_head's 32274), bias;
+    16 and 17 rows sit at both sides of the first version's plan edge."""
     rng = np.random.default_rng(6)
     k = 512
     p = jquant.quantize_kernel_int4(jnp.asarray(rnd(rng, k, n, scale=0.1)))
