@@ -98,20 +98,21 @@ TRAIN_B, TRAIN_S, TRAIN_LR = 2, 1024, 5e-3
 # image generation: denoise steps of every pipeline request and of the
 # request served over HTTP
 GEN_STEPS, HTTP_GEN_STEPS = 50, 50
-# end-to-end figures of this run that kernels F and A move, filled by the
-# phases and printed together at the end beside the values earlier runs
-# measured with the first versions of F and A (PERF.md section 5)
+# end-to-end figures of this run, filled by the phases and printed together
+# at the end beside the spread of the three runs of the previous version
+# (PERF.md section 5, before batched_mha's and C's forward's redesign)
 E2E: dict = {}
-_FIRST = "first F and A"
 EARLIER_E2E = {
-    "emu2 1 image + question, beam 5 prefill ms": (612.3, _FIRST),
-    "served mix int8 KV tok/s": (23.4, _FIRST),
-    "train ms/step": (1307.30, _FIRST + "; other runs 1677.97, 2058.70"),
-    "SDXL UNet ms/step": (145.68, _FIRST),
-    "SDXL UNet profiled kernel ms": (138.81, _FIRST),
-    "SD1.5 UNet ms/step": (42.60, _FIRST),
-    "SD1.5 UNet profiled kernel ms": (32.88, _FIRST),
-    "SwiGLU ViT img/s": (151.1, _FIRST),
+    "emu2 1 image + question, beam 5 prefill ms": (106.48, 132.34),
+    "emu1 caption beam5 encode ms": (50.52, 85.09),
+    "emu1 caption beam5 prefill ms": (54.75, 90.42),
+    "served mix int8 KV tok/s": (20.39, 26.88),
+    "train ms/step": (1570.62, 2162.63),
+    "SDXL UNet ms/step": (122.71, 158.64),
+    "SDXL UNet profiled kernel ms": (110.80, 111.32),
+    "SD1.5 UNet ms/step": (43.76, 64.90),
+    "SD1.5 UNet profiled kernel ms": (23.98, 24.16),
+    "SwiGLU ViT img/s": (177.01, 190.84),
 }
 
 
@@ -130,7 +131,8 @@ def card_line() -> str:
 
 def print_resources(log: str, lib) -> None:
     """Registers, shared memory and spills of the kernels redesigned for
-    Hopper (A's forward, the W4A8 GEMM of F and G): `cuobjdump
+    Hopper (A's forward, the W4A8 GEMM of F and G, batched_mha at each
+    padded width, C's row kernel for bf16 and fp32 weights): `cuobjdump
     --dump-resource-usage` on the built library (REG per thread, STACK
     bytes, where spills land, static SHARED), ptxas's spill stores/loads
     from the build log when this run built the library, and each kernel's
@@ -156,7 +158,11 @@ def print_resources(log: str, lib) -> None:
     dyn = {"attention_kernelILi64ELi128": lib.emu_attention_smem(64),
            "attention_kernelILi128ELi64": lib.emu_attention_smem(128),
            "w4a8_gemm_kernelILi1E": lib.emu_w4a8_smem(1),
-           "w4a8_gemm_kernelILi2E": lib.emu_w4a8_smem(2)}
+           "w4a8_gemm_kernelILi2E": lib.emu_w4a8_smem(2),
+           **{f"batched_mha_kernelILi{dp}E": lib.emu_batched_mha_smem(dp)
+              for dp in (64, 128, 192, 256)},
+           "add_rmsnorm_rows_kernelI13__nv_bfloat16E": 0,
+           "add_rmsnorm_rows_kernelIfE": 0}
     seen, name = set(), None
     for line in out.splitlines():   # "Function <name>:" then its REG line
         m = re.search(r"Function ([A-Za-z0-9_]+):", line)
@@ -191,21 +197,26 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 10) -> float:
+def device_ms(fn, iters: int = 10, tries: int = 3):
     """The card's kernel time of one call of fn (every kernel it launches,
-    summed by torch.profiler), without the host's share."""
+    summed by torch.profiler), without the host's share; None when no try
+    recorded a kernel (the trace lost its events: it happens, rarely)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+    for _ in range(tries):
+        with profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / iters
+    return None
 
 
 def compare(name: str, got, ref, atol: float, rtol: float) -> dict:
@@ -308,11 +319,11 @@ def check_kernels(card: str) -> dict:
         res["library_ms"] = None if library is None else cuda_ms(library)
         lib = ("none" if library is None
                else f"{res['library_ms']:.4f} ms")
-        # kernels A and F/G: also the device time alone, since at small
-        # shapes the events time the wrapper's host work
-        dev = (f", device {device_ms(kernel):.4f} ms"
-               if name.startswith(("attention", "cross", "matmul_q4",
-                                   "fused_swiglu")) else "")
+        # the card's time alone beside the events: at small shapes the
+        # events time the wrapper's host work
+        res["device_ms"] = device_ms(kernel)
+        dev = (", device not measured" if res["device_ms"] is None
+               else f", device {res['device_ms']:.4f} ms")
         print(f"  {name}: kernel {res['ms']:.4f} ms{dev}, plain "
               f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
               f"({res['bound_by']}), library {lib}  [{card}]")
@@ -388,12 +399,19 @@ def check_kernels(card: str) -> dict:
             raise AssertionError("fused_mlp: two runs gave different bits")
     print("  fused_mlp: two runs give the same bits at M = 2056 and 257")
 
-    def norm_cost(rows, w, add):
-        return (2 * rows * w * (4 if add else 2) + 2 * w
-                + (4 * rows if add else 0)), 4 * rows * w
+    def norm_cost(rows, w, add, wbytes=2):
+        return (2 * rows * w * (4 if add else 2) + wbytes * w
+                + 4 * rows), 4 * rows * w
+
+    def norm_y_exact(w, xr, rr):
+        """y = x + r of the add form, the same bits as the plain add."""
+        if not torch.equal(C.rmsnorm_fwd(w, xr, rr)[0], xr + rr):
+            raise AssertionError(f"add_rmsnorm {tuple(xr.shape)}: y differs "
+                                 "from x + r")
 
     # C: the norm without add (library: F.rms_norm) and add_rmsnorm, over
-    # prefill rows (8 * 80) and decode rows (8), W = 5120
+    # prefill rows (8 * 80) and decode rows (8), W = 5120; then the add form
+    # with an fp32 weight, read as it is stored
     w = 1 + randn(5120, std=0.1)
     for rows in (640, 8):
         xr, rr = randn(rows, 5120), randn(rows, 5120)
@@ -405,6 +423,12 @@ def check_kernels(card: str) -> dict:
             lambda: C.rmsnorm_fwd(w, xr, rr)[:2],
             lambda: C.rmsnorm_reference(w, xr, rr)[:2], 1e-2, 1e-2,
             *norm_cost(rows, 5120, True))
+        norm_y_exact(w, xr, rr)
+    w32 = 1 + torch.randn(5120, device=dev, generator=g) * 0.1
+    xr, rr = randn(640, 5120), randn(640, 5120)
+    run("add_rmsnorm_640x5120_w_fp32", lambda: C.rmsnorm_fwd(w32, xr, rr)[:2],
+        lambda: C.rmsnorm_reference(w32, xr, rr)[:2], 1e-2, 1e-2,
+        *norm_cost(640, 5120, True, 4))
 
     def decode_cost(b, h, hkv, d, lens, qn=1, itemsize=2, extra=True,
                     scales=False):
@@ -464,6 +488,7 @@ def check_kernels(card: str) -> dict:
         run(f"add_rmsnorm_{rows}x6656", lambda: C.rmsnorm_fwd(w, xr, rr)[:2],
             lambda: C.rmsnorm_reference(w, xr, rr)[:2], 1e-2, 1e-2,
             *norm_cost(rows, 6656, True))
+        norm_y_exact(w, xr, rr)
     # D: 5 beams, 52 heads of 128, a 384-slot stacked cache
     kc, vc = randn(2, 5, 52, 384, 128), randn(2, 5, 52, 384, 128)
     qd = randn(5, 1, 52, 128)
@@ -651,12 +676,16 @@ def check_kernels(card: str) -> dict:
 
 
 # the UNets' latent self-attention shapes at batch 2 (CFG): SDXL at 1024²
-# (its 32² level; the 64² level goes to kernel A), SD1.5 at 512² (its 32²,
-# 16² and 8² levels), and a ragged S at the widest head batched_mha takes
+# (its 32² level), SD1.5 at 512² (its 32², 16² and 8² levels), and a ragged
+# S at the widest head batched_mha takes
 MHA_SHAPES = [(2, 1024, 20, 64), (2, 1024, 8, 80), (2, 256, 8, 160),
               (2, 64, 8, 160), (2, 257, 8, 256)]
-# the UNets' 4096-token self-attention (kernel A, non-causal)
-LONG_SHAPES = [(2, 4096, 10, 64), (2, 4096, 8, 40)]
+# every self-attention shape on a path that both batched_mha and kernel A
+# (D <= 128) take: the UNets' 1024- and 4096-token levels (SDXL's and
+# SD1.5's 64² levels) and the SwiGLU ViT's 257 tokens at batch 32; each
+# goes to the kernel measured faster
+ROUTE_SHAPES = [(2, 1024, 20, 64), (2, 1024, 8, 80), (32, 257, 16, 64),
+                (2, 4096, 10, 64), (2, 4096, 8, 40)]
 # the UNets' cross-attention: latent queries against the 64 (Emu2-Gen) or
 # 32 (Emu1) conditioning embeddings, at the head widths kernel A takes
 CROSS_SHAPES = [(2, 4096, 10, 64, 64), (2, 1024, 20, 64, 64),
@@ -666,9 +695,10 @@ CROSS_SHAPES = [(2, 4096, 10, 64, 64), (2, 1024, 20, 64, 64),
 def check_diffusion_kernels(run, randn, attn_cost, results) -> None:
     """Phase 3, the image-generation path's attention: batched_mha at the
     UNets' self-attention shapes (token-major views of one [B, S, 3, H, D]
-    projection, as the UNet reads them); kernel A non-causal at the
-    4096-token level; batched_mha against kernel A at the route's edge
-    (1024 and 4096 tokens); and kernel A against the plain chain at the
+    projection, as the UNet reads them); batched_mha against kernel A
+    non-causal at every self-attention shape both take (ROUTE_SHAPES), the
+    measurement behind `attention_route`'s MHA_MIN_S / MHA_MAX_S; and
+    kernel A against the plain chain at the
     cross-attention shapes, the measurement behind sending that attention
     to kernel A. Limit: 1e-2 + 1e-2 * max|ref|."""
     import torch
@@ -680,26 +710,38 @@ def check_diffusion_kernels(run, randn, attn_cost, results) -> None:
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         return lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
 
-    for b, s, h, d in MHA_SHAPES + LONG_SHAPES[:1]:
+    for b, s, h, d in MHA_SHAPES + [x for x in ROUTE_SHAPES
+                                    if x not in MHA_SHAPES]:
         q, k, v = randn(b, s, 3, h, d).unbind(2)
         sc = d ** -0.5
         run(f"batched_mha_{b}x{s}x{h}x{d}",
             lambda: A.batched_mha(q, k, v, scale=sc),
             lambda: A.batched_mha_reference(q, k, v, scale=sc), 1e-2, 1e-2,
             *attn_cost(b, h, s, s, d), library=sdpa(q, k, v, sc))
-    for b, s, h, d in LONG_SHAPES + MHA_SHAPES[:1]:
+    for b, s, h, d in ROUTE_SHAPES:
         q, k, v = randn(b, s, 3, h, d).unbind(2)
         sc = d ** -0.5
         run(f"attention_noncausal_{b}x{s}x{h}x{d}",
             lambda: A.flash_attention(q, k, v, scale=sc),
             lambda: A.batched_mha_reference(q, k, v, scale=sc), 1e-2, 1e-2,
             *attn_cost(b, h, s, s, d), library=sdpa(q, k, v, sc))
-    edge = [(s, results[f"batched_mha_{b}x{s}x{h}x{d}"]["ms"],
-             results[f"attention_noncausal_{b}x{s}x{h}x{d}"]["ms"])
-            for b, s, h, d in (MHA_SHAPES[0], LONG_SHAPES[0])]
-    print(f"  self-attention route edge (MHA_MAX_S = {att.MHA_MAX_S}): "
-          + "; ".join(f"{s} tokens: batched_mha {m:.4f} ms, kernel A "
-                      f"{a:.4f} ms" for s, m, a in edge))
+    print(f"  self-attention route (MHA_MIN_S, MHA_MAX_S = {att.MHA_MIN_S}, "
+          f"{att.MHA_MAX_S}), by the card's time:")
+    for b, s, h, d in ROUTE_SHAPES:
+        m = results[f"batched_mha_{b}x{s}x{h}x{d}"]
+        a = results[f"attention_noncausal_{b}x{s}x{h}x{d}"]
+        # the card's times, or the events' where a trace was lost
+        key = ("device_ms" if None not in (m["device_ms"], a["device_ms"])
+               else "ms")
+        faster = "batched_mha" if m[key] < a[key] else "flash"
+        q = torch.empty(b, s, h, d, device="meta", dtype=torch.bfloat16)
+        route = att.attention_route(q, q, q)
+        dm, da = (("not measured" if x is None else f"{x:.4f}")
+                  for x in (m["device_ms"], a["device_ms"]))
+        print(f"    {b}x{s}x{h}x{d}: batched_mha {m['ms']:.4f} ms (device "
+              f"{dm}), kernel A {a['ms']:.4f} ms (device {da}): {faster} is "
+              f"faster by {key}; the route takes {route}"
+              f"{'' if route == faster else ' (DIFFERS)'}")
     for b, sq, h, d, skv in CROSS_SHAPES:
         q = randn(b, sq, h, d)
         k, v = randn(b, skv, 2, h, d).unbind(2)
@@ -1025,6 +1067,7 @@ def run_full(card: str, images) -> None:
                  f"hypothesis tok/s over {st['beams']} beams)")
         E2E[f"emu1 {label} encode ms"] = st["encode_s"] * 1e3
         E2E[f"emu1 {label} prefill ms"] = st["prefill_s"] * 1e3
+        E2E[f"emu1 {label} decode ms/step"] = st["decode_s"] * 1e3 / steps
         print(f"  {label}: images={st['images']} rows={st['rows']} "
               f"encode {st['encode_s'] * 1e3:.1f} ms, prefill "
               f"{st['prefill_s'] * 1e3:.1f} ms, decode "
@@ -1170,6 +1213,7 @@ def run_emu2_full(card: str, images) -> None:
         st = chat.last_stats
         steps = max(st["decode_steps"], 1)
         E2E[f"emu2 {label} prefill ms"] = st["prefill_s"] * 1e3
+        E2E[f"emu2 {label} decode ms/step"] = st["decode_s"] * 1e3 / steps
         print(f"  {label}: images={st['images']} frames={st['frames']} "
               f"prompt={st['prompt_len']} encode {st['encode_s'] * 1e3:.1f} ms,"
               f" prefill {st['prefill_s'] * 1e3:.1f} ms, decode "
@@ -1671,6 +1715,8 @@ def profile_unet_step(card: str, pipe, lat: int, ctx_len: int,
     E2E[f"{unet_name} UNet profiled kernel ms"] = busy
     E2E[f"{unet_name} UNet kernel A ms"] = sum(
         ms for name, ms in by_name.items() if "attention_kernel" in name)
+    E2E[f"{unet_name} UNet batched_mha ms"] = sum(
+        ms for name, ms in by_name.items() if "batched_mha_kernel" in name)
     print(f"  one UNet step under torch.profiler: kernels {busy:.2f} ms "
           f"against {step_ms:.2f} ms unprofiled (busy {busy / step_ms:.2f})"
           f"  [{card}]")
@@ -2015,6 +2061,7 @@ def profile_engine_decode(card: str, chat) -> None:
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() / 1e3 / 8
     busy = sum(by_name.values())
+    E2E["engine decode step alone ms"] = wall
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print(f"  engine decode alone (8 slots, int8 KV, max_len 1024): "
           f"{wall:.2f} ms/step wall, kernels {busy:.2f} ms/step (busy "
@@ -2165,14 +2212,16 @@ KERNELS = [  # name, source, replaces, wrapper, checks (first one timed)
       "attention_causal_1x52x330x128",
       "attention_vit_1x16x1025x112", "attention_causal_1x8x8192x128",
       "attention_noncausal_2x4096x10x64", "attention_noncausal_2x4096x8x40",
-      "attention_noncausal_2x1024x20x64", "cross_2x4096x10x64_kv64",
+      "attention_noncausal_2x1024x20x64", "attention_noncausal_2x1024x8x80",
+      "attention_noncausal_32x257x16x64", "cross_2x4096x10x64_kv64",
       "cross_2x1024x20x64_kv64", "cross_2x4096x8x40_kv32",
       "cross_2x1024x8x80_kv32"]),
     ("batched_mha", "emu_tpu_torch/csrc/batched_mha.cu",
      "emu_tpu/ops/flash_attention.py:250", "A.batched_mha",
      ["batched_mha_2x1024x20x64", "batched_mha_2x1024x8x80",
       "batched_mha_2x256x8x160", "batched_mha_2x64x8x160",
-      "batched_mha_2x257x8x256", "batched_mha_2x4096x10x64"]),
+      "batched_mha_2x257x8x256", "batched_mha_2x4096x10x64",
+      "batched_mha_2x4096x8x40", "batched_mha_32x257x16x64"]),
     ("attention_lse", "emu_tpu_torch/csrc/attention.cu",
      "emu_tpu/ops/flash_attention.py:559", "A.attention:lse",
      ["attention_lse_causal_2x40x1024x128"]),
@@ -2195,7 +2244,8 @@ KERNELS = [  # name, source, replaces, wrapper, checks (first one timed)
     ("add_rmsnorm", "emu_tpu_torch/csrc/rmsnorm.cu",
      "emu_tpu/ops/fused_norm.py:100", "C.rmsnorm_fwd",
      ["rms_norm_640x5120", "add_rmsnorm_640x5120", "add_rmsnorm_8x5120",
-      "rms_norm_8x5120", "add_rmsnorm_330x6656", "add_rmsnorm_5x6656"]),
+      "rms_norm_8x5120", "add_rmsnorm_330x6656", "add_rmsnorm_5x6656",
+      "add_rmsnorm_640x5120_w_fp32"]),
     ("decode_attention", "emu_tpu_torch/csrc/decode_attention.cu",
      "emu_tpu/ops/decode_attention.py:166", "D.decode_attention:bf16",
      ["decode_attention_b8_40x256x128", "decode_attention_b5_40x256x128",
@@ -2416,11 +2466,12 @@ def main() -> int:
                 ["fused_dense_pre", "fused_dense_post", "mha_packed_qkv",
                  "batched_mha", "attention", "fused_mlp"],
                 run_vit_parts, card)[0])
-    print("  end-to-end figures, this run (earlier run, PERF.md section 5):")
+    print("  end-to-end figures, this run (the previous version's three runs,"
+          " PERF.md section 5):")
     for key, value in E2E.items():
         was = EARLIER_E2E.get(key)
         print(f"    {key}: {value:.2f}"
-              + (f" ({was[0]}, {was[1]})" if was else ""))
+              + (f" ({was[0]}-{was[1]})" if was else ""))
     print(f"  total {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
@@ -2429,8 +2480,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(res[k]["max_abs_err"] for k in keys),
-            **{f: res[keys[0]][f] for f in ("ms", "plain_ms", "bound_ms",
-                                            "bound_by", "library_ms")},
+            **{f: res[keys[0]][f] for f in ("ms", "device_ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "library_ms")},
             "timed": keys[0]})
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -50,8 +50,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "hopper.cuh"
-#include "wgmma.cuh"
+#include "attention_tiles.cuh"
 
 namespace {
 
@@ -86,23 +85,6 @@ struct AttnPlan {
   static constexpr int BAR_OFF = COL_OFF + STAGES * BK;
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
 };
-
-template <int N>
-__device__ __forceinline__ void qk_wgmma(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
-  if constexpr (N == 64) wgmma_bf16_ss_n64(d, da, db, acc);
-  else wgmma_bf16_ss_n128(d, da, db, acc);
-}
-
-template <int N>
-__device__ __forceinline__ void pv_wgmma(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (N == 64) wgmma_bf16_rs_n64(d, a, db, 1);
-  else wgmma_bf16_rs_n128(d, a, db, 1);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 template <int DP, int BK>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -293,7 +275,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      pv_wgmma<DP>(o, pa[kk], smem_desc(vs + kk * 16 * 128, BK * 128, 1024));
+      pv_wgmma<DP, BK>(o, pa[kk], smem_desc(vs + kk * 16 * 128, BK * 128, 1024));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -336,27 +318,6 @@ __global__ void __launch_bounds__(THREADS, 1)
       *reinterpret_cast<__nv_bfloat162*>(op + row * a.o_ss + col) = __floats2bfloat162_rn(y0, y1);
     }
   }
-}
-
-// A 4-D map of a [B, H, S, D] view at its strides (elements), box 64 x rows.
-bool bhsd_map(CUtensorMap* map, const void* base, int B, int H, int S, int D, long long sb,
-              long long sh, long long ss, int rows) {
-  const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S),
-                            static_cast<uint64_t>(H), static_cast<uint64_t>(B)};
-  // a dim of extent 1 is never stepped: give it a stride the encoder takes;
-  // a broadcast (stride-0) dim of extent > 1 has no map
-  const long long raw[3] = {ss, sh, sb};
-  const uint64_t ext[3] = {static_cast<uint64_t>(S), static_cast<uint64_t>(H),
-                           static_cast<uint64_t>(B)};
-  uint64_t strides[3];
-  uint64_t prev = 2ULL * D;
-  for (int i = 0; i < 3; ++i) {
-    if (ext[i] > 1 && raw[i] <= 0) return false;
-    strides[i] = ext[i] == 1 ? prev : static_cast<uint64_t>(raw[i]) * 2;
-    prev = strides[i] * ext[i];
-  }
-  const uint32_t box[4] = {64, static_cast<uint32_t>(rows), 1, 1};
-  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box);
 }
 
 template <int DP, int BK>

@@ -161,6 +161,14 @@ __device__ __forceinline__ void fence_regs(T (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(reinterpret_cast<uint32_t&>(r[i]))::"memory");
 }
 
+// The same for fp32 accumulators, held as fp32 registers: no move between
+// register types lands inside a wgmma's pipeline stage (batched_mha.cu).
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
 // Moves registers between warpgroups of a warp-specialised block: the
 // warpgroup's threads drop to (dealloc) or rise to (alloc) REGS each.
 template <int REGS>

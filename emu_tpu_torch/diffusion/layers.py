@@ -88,8 +88,8 @@ def attention(p: dict, x: torch.Tensor, ctx: Optional[torch.Tensor],
     """Diffusers-style attention: to_q/k/v without bias, to_out with one.
     x [B, N, C]; ctx [B, M, C_ctx] (None → self-attention). The heads are
     [B, N, H, C/H] views of the projections, routed by
-    `ops.attention.attention_route` (latent self-attention up to 1024
-    tokens → batched_mha, longer → kernel A)."""
+    `ops.attention.attention_route` (latent self-attention up to 4096
+    tokens → batched_mha, the cross-attention → kernel A)."""
     b, n, c = x.shape
     kv = x if ctx is None else ctx
     hd = c // n_heads

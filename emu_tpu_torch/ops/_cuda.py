@@ -14,6 +14,7 @@ Each C entry point launches on the stream it is given and returns
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -31,6 +32,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     "emu_attention_fwd": [_P] * 8 + [_L] * 12 + [_I] * 6 + [_F, _I, _P],
     "emu_batched_mha_fwd": [_P] * 4 + [_L] * 12 + [_I] * 4 + [_F, _P],
+    "emu_batched_mha_smem": [_I],
     "emu_attention_bwd_dq": [_P] * 12 + [_I] * 6 + [_F, _I, _P],
     "emu_attention_bwd_dkv": [_P] * 12 + [_I] * 6 + [_F, _I, _P],
     "emu_fused_mlp_splits": [_I, _I],
@@ -43,7 +45,7 @@ SIGNATURES = {
     "emu_attention_smem": [_I],
     "emu_matmul_q4_fwd": [_P] * 8 + [_I] * 4 + [_P],
     "emu_fused_swiglu_q4_fwd": [_P] * 13 + [_I] * 6 + [_F, _I, _P],
-    "emu_add_rmsnorm_fwd": [_P] * 6 + [_I, _I, _F, _P],
+    "emu_add_rmsnorm_fwd": [_P] * 6 + [_I, _I, _I, _F, _P],
     "emu_add_rmsnorm_bwd": [_P] * 8 + [_I] * 3 + [_P],
     "emu_decode_attention_fwd": [_P] + [_L] * 3 + [_P] * 6 + [_L] * 3 + [_P]
                                 + [_L] * 3 + [_P] + [_I] * 3 + [_P]
@@ -53,11 +55,13 @@ SIGNATURES = {
 
 def on_cpu(t, name: str) -> bool:
     """True for a CPU tensor (the wrapper runs its plain twin); False for a
-    CUDA tensor (the wrapper launches its kernel); raises otherwise."""
-    if t.device.type == "cpu":
+    CUDA tensor (the wrapper launches its kernel); raises otherwise. (The
+    tensor's flags, not its device object: this runs on every call.)"""
+    if t.is_cuda:
+        return False
+    if t.is_cpu:
         return True
-    require(t.device.type == "cuda", f"{name}: unsupported device {t.device}")
-    return False
+    raise ValueError(f"{name}: unsupported device {t.device}")
 
 
 def kernel_dtype(x) -> bool:
@@ -68,13 +72,23 @@ def kernel_dtype(x) -> bool:
     return x.element_size() <= 2
 
 
+def records(*tensors) -> bool:
+    """Whether autograd records a call on these tensors (None allowed):
+    grad is enabled and one of them requires grad."""
+    import torch
+    if not torch.is_grad_enabled():
+        return False
+    for t in tensors:
+        if t is not None and t.requires_grad:
+            return True
+    return False
+
+
 def refuse_grad(name: str, *tensors) -> None:
     """An inference-only kernel's output carries no gradient: refuse to
     launch it where autograd would need one, instead of returning a tensor
     that silently cuts the graph."""
-    import torch
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+    if records(*tensors):
         raise RuntimeError(
             f"{name}: the kernel has no backward; call it under "
             "torch.no_grad() or on inputs that do not require grad")
@@ -153,8 +167,21 @@ def check(status: int, name: str) -> None:
 
 
 def stream(t) -> int:
+    """The raw handle of the current stream on t's card."""
     import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def device_of(t):
+    """A context making the card of tensor t current for a launch: a no-op
+    when it is current already, as it is on a one-card machine."""
+    import torch
+    if t.get_device() == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
 
 
 def ptr(t) -> int | None:

@@ -12,12 +12,12 @@ activations, dense bias/mask forms and head widths above 256 (the VAE's
 one 512-wide head) take the plain chain, as they take XLA in the JAX
 package; unmasked, non-causal self-attention of 64 to MHA_MAX_S tokens with
 D <= 256 goes to `flash_attention.batched_mha` (the diffusion UNets'
-latent self-attention up to 1024 tokens); the rest (causal, `kv_valid`,
-longer non-causal self-attention, and the UNets' short-KV cross-attention,
-where the JAX package takes XLA but kernel A beats the plain chain on the
-H100: PERF.md) goes to kernel A (`flash_attention.attention`,
-differentiable, D <= 128), and what kernel A cannot take to the plain
-chain. Cache
+latent self-attention at every level, the SwiGLU ViT's); the rest (causal,
+`kv_valid`, longer non-causal self-attention, and the UNets' short-KV
+cross-attention, where the JAX package takes XLA but kernel A beats the
+plain chain on the H100: PERF.md) goes to kernel A
+(`flash_attention.attention`, differentiable, D <= 128), and what kernel A
+cannot take to the plain chain. Cache
 attention follows the JAX package's rule (`emu_tpu/ops/attention.py:218-260`): Sq == 1, or k_new/v_new with
 Sq <= 32, with a kv_valid mask and no dense mask or causal flag, goes to
 kernel D (`decode_attention`, or `paged_decode_attention` for a page pool)
@@ -43,11 +43,13 @@ from emu_tpu_torch.ops.decode_attention import (MAX_CHUNK, decode_attention,
                                                 paged_decode_attention)
 
 
-# batched_mha's sequence range: from the JAX package's 64-token floor up to
-# 1024, where the JAX package's `mha_fits` stops at these head widths (its
-# VMEM budget); longer self-attention (the UNets' 4096-token level) stays
-# on kernel A. chip_smoke.py times both kernels at 1024 and 4096 tokens.
-MHA_MIN_S, MHA_MAX_S = 64, 1024
+# batched_mha's sequence range, measured on the H100 (chip_smoke.py phase
+# 3, ROUTE_SHAPES: both kernels at every self-attention shape they share):
+# batched_mha beats kernel A at 257, 1024 and 4096 tokens (PERF.md), so it
+# takes the UNets' 4096-token level too; from the JAX package's 64-token
+# floor up to 4096, the longest self-attention on a path. Longer ones go to
+# kernel A, which has the streaming form the JAX package keeps for them.
+MHA_MIN_S, MHA_MAX_S = 64, 4096
 
 
 def attention_route(q, k, v=None, *, bias=None, mask=None, kv_valid=None,
@@ -60,8 +62,7 @@ def attention_route(q, k, v=None, *, bias=None, mask=None, kv_valid=None,
         return "plain"
     if d > fa.MHA_MAX_D or d % 8:
         return "plain"
-    grad = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (q, k, v))
+    grad = _cuda.records(q, k, v)
     if (not causal and kv_valid is None and sq == skv and h == hkv
             and MHA_MIN_S <= sq <= MHA_MAX_S and not grad):
         return "batched_mha"        # inference only, as the TPU kernel

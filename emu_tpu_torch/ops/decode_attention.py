@@ -203,7 +203,7 @@ def _launch(q, k, v, kv_valid, k_scale, v_scale, scale, layer, k_new, v_new,
     vn_s = (0, 0, 0) if v_new is None else extra(v_new)
     valid = kv_valid.to(device=q.device, dtype=torch.bool).contiguous()
     out = torch.empty(b, qn, h, d, device=q.device, dtype=bf)
-    with torch.cuda.device(q.device):
+    with _cuda.device_of(q):
         status = _cuda.library().emu_decode_attention_fwd(
             q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
             k.data_ptr(), v.data_ptr(), _cuda.ptr(k_scale), _cuda.ptr(v_scale),

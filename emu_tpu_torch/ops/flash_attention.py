@@ -121,7 +121,7 @@ def _attention_fwd(q, k, v, q_bias, v_bias, kv_valid, scale: float,
                       ).transpose(1, 2)
     lse = torch.empty(b, h, sq if with_lse else 0, device=q.device,
                       dtype=torch.float32)
-    with torch.cuda.device(q.device):
+    with _cuda.device_of(q):
         status = _cuda.library().emu_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _cuda.ptr(q_bias),
             _cuda.ptr(v_bias), _cuda.ptr(kv_valid), out.data_ptr(),
@@ -219,7 +219,7 @@ def _bwd_launch(entry, name, q, k, v, o, lse, do, dvec, kv_valid, dq, dk,
     strides = (ctypes.c_longlong * 24)(*(
         s for t in (q, k, v, o, do, dq, dk, dv)
         for s in (t.stride()[:3] if t is not None else (0, 0, 0))))
-    with torch.cuda.device(q.device):
+    with _cuda.device_of(q):
         status = getattr(_cuda.library(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _cuda.ptr(o),
             do.data_ptr(), lse.contiguous().data_ptr(), dvec.data_ptr(),
@@ -348,8 +348,7 @@ def attention(q, k, v, q_bias=None, v_bias=None, *,
         q_bias = q_bias.reshape(h, d)
     if v_bias is not None:
         v_bias = v_bias.reshape(hkv, d)
-    need = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (q, k, v, q_bias, v_bias))
+    need = _cuda.records(q, k, v, q_bias, v_bias)
     return _Attention.apply(q, k, v, q_bias, v_bias, kv_valid, float(scale),
                             bool(causal), need)
 
@@ -382,18 +381,19 @@ def batched_mha_reference(q, k, v, *, scale: float = 1.0):
 
 def _batched_mha_launch(name, q, k, v, scale):
     """Checks and one launch of the `csrc/batched_mha.cu` kernel on CUDA
-    q/k/v [B, S, H, D] views → a new [B, S, H, D] tensor."""
+    q/k/v [B, S, H, D] views → a new [B, S, H, D] tensor. Messages are
+    built only on failure: this runs on every call."""
     _cuda.refuse_grad(name, q, k, v)
     b, s, h, d = q.shape
-    _cuda.require(k.shape == v.shape == q.shape,
-                  f"{name}: q{tuple(q.shape)} k{tuple(k.shape)} "
-                  f"v{tuple(v.shape)} must match")
-    _cuda.require(d % 8 == 0 and d <= MHA_MAX_D,
-                  f"{name}: head dim {d} must be a multiple of 8, <= "
-                  f"{MHA_MAX_D}")
-    _check_bhsd(name, ("q", q), ("k", k), ("v", v))
+    if not k.shape == v.shape == q.shape:
+        raise ValueError(f"{name}: q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} must match")
+    if not (d % 8 == 0 and d <= MHA_MAX_D):
+        raise ValueError(f"{name}: head dim {d} must be a multiple of 8, <= "
+                         f"{MHA_MAX_D}")
+    _check_bhsd(name, ("q", q), ("k", k), ("v", v), maps=True)
     out = torch.empty(b, s, h, d, device=q.device, dtype=q.dtype)
-    with torch.cuda.device(q.device):
+    with _cuda.device_of(q):
         status = _cuda.library().emu_batched_mha_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -406,9 +406,10 @@ def batched_mha(q, k, v, *, scale: float = 1.0):
     """Unmasked self-attention over token-major q/k/v [B, S, H, D] →
     [B, S, H, D] (`emu_tpu.ops.flash_attention.batched_mha`): the CUDA
     kernel of `csrc/batched_mha.cu` on CUDA tensors (bf16, D a multiple of
-    8 up to 256, any strides with a contiguous last dim; S is the real
-    length, the kernel masks the ragged edge), the plain twin on CPU
-    tensors. Inference only, as the TPU kernel: no backward."""
+    8 up to 256, strides that are 16-byte multiples with a contiguous last
+    dim and no broadcast (stride-0) dim, which its tensor maps cannot step;
+    S is the real length, the kernel masks the ragged edge), the plain twin
+    on CPU tensors. Inference only, as the TPU kernel: no backward."""
     if _cuda.on_cpu(q, "batched_mha"):
         return batched_mha_reference(q, k, v, scale=scale)
     out = _batched_mha_launch("batched_mha", q, k, v, scale)
@@ -421,9 +422,9 @@ batched_mha.launches = 0
 
 def _packed_views(qkv, num_heads: int, head_dim: int):
     b, s, three_hd = qkv.shape
-    _cuda.require(three_hd == 3 * num_heads * head_dim,
-                  f"mha_packed_qkv: qkv {tuple(qkv.shape)} is not [B, S, 3 * "
-                  f"{num_heads} * {head_dim}]")
+    if three_hd != 3 * num_heads * head_dim:
+        raise ValueError(f"mha_packed_qkv: qkv {tuple(qkv.shape)} is not "
+                         f"[B, S, 3 * {num_heads} * {head_dim}]")
     return qkv.view(b, s, 3, num_heads, head_dim).unbind(2)
 
 

@@ -133,7 +133,7 @@ def fused_mlp(x, w1, b1, w2, b2, w3=None, b3=None, ln_scale=None,
     w2_ = hidden[1] if swiglu else w_out
     m = xf.shape[0]
     out = torch.empty(m, n, device=x.device, dtype=bf)
-    with torch.cuda.device(x.device):
+    with _cuda.device_of(x):
         lib = _cuda.library()
         # fp32 partial sums, one [M, N] slice per hidden-dim split, summed
         # in a fixed order (see csrc/fused_mlp.cu)
@@ -246,7 +246,7 @@ def fused_mlp_w8a8(x, w1_q8, scale1, b1, w2_q8, scale2, b2, ln_scale=None,
     hs = torch.empty(m, f // bf, device=dev, dtype=f32)
     ws = torch.empty(m, n, device=dev, dtype=f32)
     out = torch.empty(m, n, device=dev, dtype=bf16)
-    with torch.cuda.device(dev):
+    with _cuda.device_of(x):
         status = _cuda.library().emu_fused_mlp_w8a8_fwd(
             xf.data_ptr(), w1_q8.data_ptr(), scale1.data_ptr(),
             _cuda.ptr(vec[0]), w2_q8.data_ptr(), scale2.data_ptr(),
@@ -337,7 +337,7 @@ def fused_dense(x, w, b=None, ln_scale=None, ln_bias=None, residual=None, *,
           if ln_mode == "pre" else None)
     ws = (torch.empty(m, n, device=x.device, dtype=torch.float32)
           if ln_mode == "post" else None)
-    with torch.cuda.device(x.device):
+    with _cuda.device_of(x):
         status = _cuda.library().emu_fused_dense_fwd(
             xf.data_ptr(), w.data_ptr(), _cuda.ptr(b), _cuda.ptr(ln_scale),
             _cuda.ptr(ln_bias), _cuda.ptr(residual), _cuda.ptr(xn),

@@ -19,7 +19,10 @@ at every row count (8 decode rows as well as prefill slabs), not only from
 
 `rmsnorm_fwd` and `rmsnorm_bwd` are the wrappers: on a CPU tensor they run
 their plain twins, on a CUDA tensor they launch the kernel or raise.
-`add_rmsnorm` and `rms_norm_fused` are `torch.autograd.Function`s over them.
+`add_rmsnorm` and `rms_norm_fused` take `torch.autograd.Function`s over them
+where autograd records, and `rmsnorm_fwd` alone where it does not (every
+serving and generation call): the forward's host path does only what the
+launch needs.
 """
 
 from __future__ import annotations
@@ -40,31 +43,38 @@ def rmsnorm_reference(w, x, r=None, eps: float = 1e-6):
 
 
 def rmsnorm_fwd(w, x, r=None, eps: float = 1e-6):
-    """(y, h, rsigma) for x/r [..., W] and w [W]; y is x when r is None."""
+    """(y, h, rsigma) for x/r [..., W] and w [W]; y is x when r is None.
+    w is read in its stored dtype (bf16 or fp32; another float dtype is
+    widened to fp32) and used in fp32, as the TPU kernel reads it."""
     if _cuda.on_cpu(x, "rmsnorm"):
         return rmsnorm_reference(w, x, r, eps)
     _cuda.refuse_grad("rmsnorm", w, x, r)
     wd = x.shape[-1]
     bf = torch.bfloat16
-    _cuda.require(x.dtype == bf and (r is None or r.dtype == bf),
-                  "rmsnorm: x and r must be bfloat16")
-    _cuda.require(w.shape == (wd,) and (r is None or r.shape == x.shape),
-                  f"rmsnorm: bad shapes x{tuple(x.shape)} w{tuple(w.shape)}")
-    xf = x.reshape(-1, wd).contiguous()
-    rf = None if r is None else r.reshape(-1, wd).contiguous()
-    w = w.to(bf).contiguous()
-    m = xf.shape[0]
-    y = xf if r is None else torch.empty_like(xf)
-    h = torch.empty_like(xf)
+    if not (x.dtype == bf and (r is None or r.dtype == bf)):
+        raise ValueError("rmsnorm: x and r must be bfloat16")
+    if not (w.shape == (wd,) and (r is None or r.shape == x.shape)
+            and w.device == x.device):
+        raise ValueError(f"rmsnorm: bad shapes or devices x{tuple(x.shape)} "
+                         f"w{tuple(w.shape)} on {w.device}")
+    if w.dtype not in (bf, torch.float32):
+        w = w.float()
+    x = x.contiguous()
+    r = None if r is None else r.contiguous()
+    w = w.contiguous()
+    y = x if r is None else torch.empty_like(x)
+    h = torch.empty_like(x)
+    m = x.numel() // wd
     rsig = torch.empty(m, device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
+    with _cuda.device_of(x):
         status = _cuda.library().emu_add_rmsnorm_fwd(
-            xf.data_ptr(), _cuda.ptr(rf), w.data_ptr(),
+            x.data_ptr(), _cuda.ptr(r), w.data_ptr(),
             None if r is None else y.data_ptr(), h.data_ptr(),
-            rsig.data_ptr(), m, wd, float(eps), _cuda.stream(x))
+            rsig.data_ptr(), m, wd, int(w.dtype == torch.float32), float(eps),
+            _cuda.stream(x))
     _cuda.check(status, "rmsnorm")
     rmsnorm_fwd.launches += 1
-    return y.reshape(x.shape), h.reshape(x.shape), rsig
+    return y, h, rsig
 
 
 rmsnorm_fwd.launches = 0
@@ -114,7 +124,7 @@ def rmsnorm_bwd(y, w, rsigma, dh, dy_ext=None):
     dx = torch.empty_like(yf)
     dw_part = torch.empty(n_part, wd, device=y.device, dtype=torch.float32)
     dw = torch.empty(wd, device=y.device, dtype=torch.float32)
-    with torch.cuda.device(y.device):
+    with _cuda.device_of(y):
         status = _cuda.library().emu_add_rmsnorm_bwd(
             yf.data_ptr(), w.to(bf).contiguous().data_ptr(),
             rsigma.contiguous().data_ptr(), dhf.data_ptr(), _cuda.ptr(dyf),
@@ -159,16 +169,24 @@ class _RMSNorm(torch.autograd.Function):
 def add_rmsnorm(w, x, r, eps: float = 1e-6):
     """(x + r, rmsnorm(w, x + r)): the residual stream and the normed
     branch input, as `emu_tpu.ops.fused_norm.add_rmsnorm`; fp32
-    activations take the plain composition."""
+    activations take the plain composition. The autograd Function is taken
+    only where autograd records (grad enabled and an input requiring grad):
+    serving and generation call the forward wrapper directly."""
     if not _cuda.kernel_dtype(x):
         y = x + r
         return y, L.rms_norm(w, y, eps)
-    return _AddRMSNorm.apply(w, x, r, eps)
+    if _cuda.records(w, x, r):
+        return _AddRMSNorm.apply(w, x, r, eps)
+    y, h, _ = rmsnorm_fwd(w, x, r, eps)
+    return y, h
 
 
 def rms_norm_fused(w, x, eps: float = 1e-6):
     """rmsnorm(w, x) through the same kernel (no residual add); fp32
-    activations take `layers.rms_norm`."""
+    activations take `layers.rms_norm`; the Function only where autograd
+    records, as in `add_rmsnorm`."""
     if not _cuda.kernel_dtype(x):
         return L.rms_norm(w, x, eps)
-    return _RMSNorm.apply(w, x, eps)
+    if _cuda.records(w, x):
+        return _RMSNorm.apply(w, x, eps)
+    return rmsnorm_fwd(w, x, None, eps)[1]

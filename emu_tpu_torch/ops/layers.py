@@ -87,9 +87,7 @@ def dense_plan(params: dict, x) -> bool:
     if bias is None or x.dtype != torch.bfloat16 or not (
             "kernel" in params or "kernel_q4" in params):
         return False
-    return not (torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad
-        for t in (x, params.get("kernel"), bias)))
+    return not _cuda.records(x, params.get("kernel"), bias)
 
 
 def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -132,8 +130,7 @@ def layer_norm_dense(norm_params: dict, params: dict, x: torch.Tensor,
     """dense(layer_norm(x)) with the JAX composition's two roundings (the
     normalised input to x's dtype, the output once): kernel H's pre form
     where `dense_plan` admits a float-weight dense, else the two calls."""
-    recorded = torch.is_grad_enabled() and any(
-        t.requires_grad for t in norm_params.values())
+    recorded = _cuda.records(*norm_params.values())
     if "kernel" in params and dense_plan(params, x) and not recorded:
         return fused_dense(x, params["kernel"].to(x.dtype), params["bias"],
                            norm_params["scale"], norm_params["bias"],

@@ -92,7 +92,7 @@ def matmul_q4(x, packed, scale4, bias=None) -> torch.Tensor:
     xq = torch.empty(m, k, device=x.device, dtype=torch.int8)
     sx = torch.empty(m, device=x.device)
     out = torch.empty(m, n, device=x.device, dtype=torch.bfloat16)
-    with torch.cuda.device(x.device):
+    with _cuda.device_of(x):
         lib = _cuda.library()
         ws = _split_workspace(lib, x.device, (m, n, k, k // groups))
         status = lib.emu_matmul_q4_fwd(
@@ -219,7 +219,7 @@ def fused_swiglu_q4(x, rms_scale, gu_packed, gu_scale, dn_packed, dn_scale,
     hq = torch.empty(m, f, device=dev, dtype=torch.int8)
     hs = torch.empty(m, f // bf, device=dev)
     out = torch.empty(m, d, device=dev, dtype=torch.bfloat16)
-    with torch.cuda.device(dev):
+    with _cuda.device_of(x):
         lib = _cuda.library()
         ws = _split_workspace(lib, dev, (m, 2 * f, d, gs_d), (m, d, f, gs_f))
         status = lib.emu_fused_swiglu_q4_fwd(

@@ -14,8 +14,8 @@ Emu1/models/pipeline.py:20-262):
 `from_config(device="cuda")` builds the full Emu1 (ViT-g, Causal Former,
 LLaMA-13B) and the UNet and VAE on one card in bf16 with random weights
 from a seed. On the card the regression runs kernels A-D, the UNet
-batched_mha (its 1024-, 256- and 64-token levels) and kernel A (its
-4096-token level).
+batched_mha (its self-attention at every level, 4096 to 64 tokens) and
+kernel A (its cross-attention).
 
 Not ported yet: `from_pretrained` (ROADMAP Queue 1 item 11) and the safety
 checker (`safety_checker=None`; a callable may be passed).

@@ -15,7 +15,8 @@ Emu2/emu/diffusion.py:31-318):
 one card with random weights from a seed: the decoder int4 and the tower
 W8A8, drawn and quantized one layer at a time, the SDXL UNet and VAE in
 bf16. On the card the regression runs kernels A, C, D, F and G, the UNet
-batched_mha (its 1024-token level) and kernel A (its 4096-token level).
+batched_mha (its self-attention at the 4096- and 1024-token levels) and
+kernel A (its cross-attention).
 
 Not ported yet: `from_pretrained` (checkpoint loading, ROADMAP Queue 1
 item 11) and the safety checker (`safety_checker=None`, as the pipelines

@@ -15,7 +15,11 @@ one CFG batch of 2, it prints:
   synchronisation between calls) and device ms, for `ops.layers.dense`
   (whatever route the tree takes) and for the fp32 composition
   `x.float() @ w.float() + b`; the same for kernel A
-  (`ops.flash_attention.attention`) on that level's self-attention;
+  (`ops.flash_attention.attention`) on that level's self-attention and
+  for `batched_mha` on the next level's (token-major views of one
+  projection, as the UNet passes them), each kernel also with its card
+  time alone from torch.profiler ("card ms"), since the events of a call
+  that waits on the host time the host;
 - the step: ms/step from CUDA events around back-to-back forwards; host
   ms/step, the time `unet.forward` takes to return on an idle card (all
   its launches queued); then one step under torch.profiler: kernel time
@@ -66,6 +70,26 @@ def host_and_device(fn, calls: int):
     return host, start.elapsed_time(end) / calls
 
 
+def card_ms(fn, calls: int = 10, tries: int = 3):
+    """The card's kernel time of one call of fn (torch.profiler), without
+    the host's share; None when no try recorded a kernel (a lost trace)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / calls
+    return None
+
+
 def profile_model(name: str, out=print) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -99,10 +123,15 @@ def profile_model(name: str, out=print) -> dict:
     heads = cfg.attention_head_dim[i]
     qkv = torch.randn(3, 2, heads, (lat >> i) ** 2, c // heads, device=dev,
                       generator=gen).to(bf)
+    # the next level's self-attention, [B, S, H, D] views of [B, S, 3, H, D]
+    c2, h2 = cfg.block_out_channels[i + 1], cfg.attention_head_dim[i + 1]
+    mqkv = torch.randn(2, (lat >> (i + 1)) ** 2, 3, h2, c2 // h2, device=dev,
+                       generator=gen).to(bf).unbind(2)
     res = {"model": name, "latent": lat, "context": [2, ctx_len,
                                                      cfg.cross_attention_dim],
            "dense_shape": [dx.shape[0], c, c],
-           "attention_shape": list(qkv.shape[1:])}
+           "attention_shape": list(qkv.shape[1:]),
+           "batched_mha_shape": list(mqkv[0].shape)}
 
     def fwd():
         return unet.forward(params, cfg, x, ts, ctx, **kw)
@@ -114,11 +143,18 @@ def profile_model(name: str, out=print) -> dict:
                 ("fp32_composition", shape, lambda: (L._matmul_f32(
                     dx, dp["kernel"]) + dp["bias"].float()).to(bf)),
                 ("attention", "x".join(map(str, qkv.shape[1:])),
-                 lambda: A.attention(*qkv, scale=(c // heads) ** -0.5))):
+                 lambda: A.attention(*qkv, scale=(c // heads) ** -0.5)),
+                ("batched_mha", "x".join(map(str, mqkv[0].shape)),
+                 lambda: A.batched_mha(*mqkv, scale=(c2 // h2) ** -0.5))):
             host, ms = host_and_device(fn, DENSE_CALLS)
             res[f"{key}_host_us"], res[f"{key}_device_ms"] = host, ms
+            card = ""
+            if key in ("attention", "batched_mha"):
+                cms = res[f"{key}_card_ms"] = card_ms(fn)
+                card = (", card not measured" if cms is None
+                        else f", card {cms:.4f} ms")
             out(f"  {key} {label}: host {host:.1f} us a call, device "
-                f"{ms:.4f} ms a call")
+                f"{ms:.4f} ms a call{card}")
         _, ms = host_and_device(fwd, STEPS)
         issue = []
         for _ in range(STEPS):

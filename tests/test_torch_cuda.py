@@ -211,12 +211,23 @@ def test_dense_routes_to_fused_dense_on_the_card(gen):
                  tol=1e-2)
 
 
-@pytest.mark.parametrize("b,s,h,d", [(2, 257, 16, 88), (1, 1025, 4, 112),
-                                     (3, 40, 4, 32)])
-def test_mha_packed_qkv_kernel(gen, b, s, h, d):
+# batched_mha's head widths (each padded width DP of 64, 128, 192 and 256,
+# the pad zero-filled by TMA) and sequence lengths around its 128-row query
+# tiles and 64/128-key K/V tiles (one token, one short of and one past a
+# tile, the ViTs' 257 and 1025)
+MHA_D = [40, 64, 80, 88, 112, 160, 256]
+MHA_S = [1, 63, 65, 129, 257, 1025]
+
+
+@pytest.mark.parametrize("b,s,h,d,pad", [
+    (2, 257, 16, 88, 0), (1, 1025, 4, 112, 0), (3, 40, 4, 32, 0)] + [
+    (2, s, 2, d, 8) for d in MHA_D for s in MHA_S])
+def test_mha_packed_qkv_kernel(gen, b, s, h, d, pad):
     """The batched_mha kernel on the three planes of a packed [B, S, 3·H·D]
-    projection (token stride 3·H·D; D = 88 and 112 pad to 96 and 112)."""
-    qkv = randn(gen, b, s, 3 * h * d)
+    projection (token stride 3·H·D; D = 88 and 112 pad to 128), and on one
+    cut from a wider buffer (token stride 3·H·D + pad): every padded width,
+    ragged S, B > 1."""
+    qkv = randn(gen, b, s, 3 * h * d + pad)[..., :3 * h * d]
     before = A.batched_mha.launches
     got = launched(A.mha_packed_qkv,
                    lambda: A.mha_packed_qkv(qkv, h, d, scale=d ** -0.5))
@@ -368,15 +379,28 @@ def test_quantized_kernels_refuse_unmet_constraints(gen):
                            p["scale4"])
 
 
-@pytest.mark.parametrize("rows,w,add", [(3, 4096, True), (5, 1000, False)])
-def test_rmsnorm_kernel(gen, rows, w, add):
+@pytest.mark.parametrize("rows,w,add,w_fp32", [
+    (3, 4096, True, False), (5, 1000, False, False), (7, 1001, True, True)] + [
+    (rows, w, add, w_fp32) for w in (1000, 4096, 5120, 6656)
+    for rows in (1, 5, 640) for add, w_fp32 in ((True, False), (False, True),
+                                                (True, True))])
+def test_rmsnorm_kernel(gen, rows, w, add, w_fp32):
+    """Kernel C's forward at the paths' widths (4096, 5120, 6656), a width
+    whose rows end inside a thread's last vector (1000) and one that takes
+    the scalar kernel (1001), at decode and prefill rows; w bf16 or fp32
+    (read in its own dtype, not rounded to bf16); y bit-equal to the plain
+    add, and every output the same bits on two runs."""
     x, r = randn(gen, rows, w), (randn(gen, rows, w) if add else None)
     wt = randn(gen, w)
+    if w_fp32:
+        wt = 1 + torch.randn(w, device="cuda", generator=gen) * 0.1
     got = launched(C.rmsnorm_fwd, lambda: C.rmsnorm_fwd(wt, x, r))
     ref = C.rmsnorm_reference(wt, x, r)
     assert torch.equal(got[0], ref[0])
     assert_close(got[1], ref[1])
     assert_close(got[2], ref[2], tol=1e-5)
+    for a, b in zip(got, C.rmsnorm_fwd(wt, x, r)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("b,h,hkv,s,d,extra", [
@@ -571,10 +595,11 @@ def test_inference_kernels_refuse_grad_on_card(gen):
 
 @pytest.mark.parametrize("b,s,h,d", [
     (2, 1024, 4, 64), (2, 130, 3, 40), (1, 257, 2, 80), (2, 64, 2, 160),
-    (1, 257, 2, 256), (3, 1, 2, 64)])
+    (1, 257, 2, 256), (3, 1, 2, 64)] + [
+    (2, s, 2, d) for d in MHA_D for s in MHA_S])
 def test_batched_mha_kernel(gen, b, s, h, d):
     """Token-major [B, S, H, D] strided views of a [B, S, 3, H, D]
-    projection, ragged S, D up to 256."""
+    projection, ragged S, every padded width D up to 256, B > 1."""
     qkv = randn(gen, b, s, 3, h, d)
     q, k, v = qkv.unbind(2)
     got = launched(A.batched_mha, lambda: A.batched_mha(q, k, v,
@@ -593,18 +618,24 @@ def test_batched_mha_refuses_unmet_constraints(gen):
     y = randn(gen, 1, 64, 2, 64).requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
         A.batched_mha(y, y, y)
+    z = randn(gen, 1, 64, 1, 64).expand(2, 64, 2, 64)   # broadcast: no map
+    with pytest.raises(ValueError, match="broadcasts"):
+        A.batched_mha(z, z, z)
 
 
 def test_unet_attention_routes_on_the_card(gen):
-    """The diffusion attention's dispatch on CUDA tensors: 1024-token
-    self-attention launches batched_mha, 4096-token self-attention and the
-    64-key cross-attention kernel A."""
+    """The diffusion attention's dispatch on CUDA tensors: 1024- and
+    4096-token self-attention launch batched_mha (the edge the card
+    measured), longer self-attention and the 64-key cross-attention kernel
+    A."""
     from emu_tpu_torch.ops import attention as att
     with torch.no_grad():
         x = randn(gen, 2, 1024, 4, 64)
         launched(A.batched_mha, lambda: att.dot_product_attention(x, x, x))
         y = randn(gen, 1, 4096, 2, 64)
-        launched(A.attention, lambda: att.dot_product_attention(y, y, y))
+        launched(A.batched_mha, lambda: att.dot_product_attention(y, y, y))
+        z = randn(gen, 1, 4160, 2, 64)
+        launched(A.attention, lambda: att.dot_product_attention(z, z, z))
         c = randn(gen, 1, 64, 2, 64)
         out = launched(A.attention, lambda: att.dot_product_attention(y, c, c))
         assert_close(out, att.grouped_attention(y, c, c, scale=64 ** -0.5))

@@ -389,8 +389,8 @@ def test_batched_mha_reference_matches_jax_kernel(s, d):
     (dict(sq=1024, skv=1024, d=64), "batched_mha"),       # SDXL 32² level
     (dict(sq=64, skv=64, d=160), "batched_mha"),          # SD1.5 mid
     (dict(sq=256, skv=256, d=256), "batched_mha"),
-    (dict(sq=4096, skv=4096, d=64), "flash"),             # SDXL 64² level
-    (dict(sq=4096, skv=4096, d=160), "plain"),            # past A and MHA
+    (dict(sq=4096, skv=4096, d=64), "batched_mha"),       # SDXL 64² level
+    (dict(sq=4096, skv=4096, d=160), "batched_mha"),      # past A's D
     (dict(sq=32, skv=32, d=64), "flash"),                 # below 64 tokens
     (dict(sq=1024, skv=1024, d=64, causal=True), "flash"),
     (dict(sq=1024, skv=1024, d=64, kv_valid=True), "flash"),
@@ -400,9 +400,15 @@ def test_batched_mha_reference_matches_jax_kernel(s, d):
     (dict(sq=1024, skv=1024, d=64, dtype=torch.float32), "plain"),
     (dict(sq=1024, skv=1024, d=64, grad=True), "flash"),  # no MHA backward
     (dict(sq=256, skv=256, d=60), "plain"),               # D % 8
+    (dict(sq=4096, skv=4096, d=40), "batched_mha"),       # SD1.5 64² level
+    (dict(sq=4097, skv=4097, d=64), "flash"),             # past the edge
+    (dict(sq=8192, skv=8192, d=160), "plain"),            # past A and MHA
 ])
 def test_attention_route(case, route):
-    """The dispatch contract (no tensor is computed on)."""
+    """The dispatch contract (no tensor is computed on). The self-attention
+    edge, 64 to 4096 tokens to batched_mha, is the one the card measured
+    (chip_smoke.py phase 3, ROUTE_SHAPES: batched_mha faster than kernel A
+    at 257, 1024 and 4096 tokens)."""
     dt = case.get("dtype", torch.bfloat16)
     b, h = 2, 4
     q = torch.empty(b, case["sq"], h, case["d"], dtype=dt, device="meta")
@@ -415,7 +421,7 @@ def test_attention_route(case, route):
 
 
 def test_dot_product_attention_reaches_batched_mha(monkeypatch):
-    """A bf16 unmasked self-attention of 64..1024 tokens calls batched_mha
+    """A bf16 unmasked self-attention of 64..4096 tokens calls batched_mha
     (its CPU twin here) and agrees with the plain chain."""
     calls = []
     real = fa.batched_mha

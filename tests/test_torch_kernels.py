@@ -163,6 +163,34 @@ def test_rmsnorm_twin_matches_pallas():
           np.asarray(rsig)[:21, 0])
 
 
+def test_rmsnorm_twin_fp32_weight_matches_pallas():
+    """bf16 activations with an fp32 weight, the LLaMA layers' case when a
+    tree keeps its norms in fp32: the kernel reads w in its stored dtype and
+    widens it, as the Pallas kernel does (`w_ref[...].astype(float32)`),
+    never rounding it to bf16. The port's entry points (their twins here)
+    against the Pallas kernels in interpret mode: y bit-equal, h within one
+    bf16 rounding of each element, rsigma at 2e-4."""
+    rng = np.random.default_rng(13)
+    bf = jnp.bfloat16
+    x, r = rnd(rng, 3, 7, 256), rnd(rng, 3, 7, 256)
+    w = 1 + rnd(rng, 256, scale=0.1)
+    jx, jr = jnp.asarray(x, bf), jnp.asarray(r, bf)
+    tx, tr = t(x).bfloat16(), t(r).bfloat16()
+    jy, jh = jnorm.add_rmsnorm(jnp.asarray(w), jx, jr, 1e-6, interpret=True)
+    y, h = norm.add_rmsnorm(t(w), tx, tr, 1e-6)
+    assert torch.equal(y.float(), t(np.asarray(jy, np.float32)))
+    np.testing.assert_allclose(h.float().numpy(), np.asarray(jh, np.float32),
+                               rtol=2 ** -7, atol=1e-6)
+    jh2 = jnorm.rms_norm_fused(jnp.asarray(w), jx, 1e-6, interpret=True)
+    np.testing.assert_allclose(
+        norm.rms_norm_fused(t(w), tx, 1e-6).float().numpy(),
+        np.asarray(jh2, np.float32), rtol=2 ** -7, atol=1e-6)
+    _, _, rsig, _, _ = jnorm._norm_call(
+        jx.reshape(-1, 256), jr.reshape(-1, 256), jnp.asarray(w), 1e-6,
+        True, True)
+    close(norm.rmsnorm_fwd(t(w), tx, tr, 1e-6)[2], np.asarray(rsig)[:21, 0])
+
+
 @pytest.mark.parametrize("h,hkv", [(4, 4), (4, 2)])
 def test_decode_attention_twin_matches_pallas(h, hkv):
     """Stacked cache + layer index, ragged kv_valid, k_new/v_new column."""

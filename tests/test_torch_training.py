@@ -112,6 +112,59 @@ def test_norm_backward_matches_jax_vjp(add, dtype):
     close(tw.grad, jdw, tol, "Function dw")
 
 
+@pytest.mark.parametrize("add", [True, False])
+def test_norm_takes_the_function_only_where_autograd_records(add,
+                                                             monkeypatch):
+    """bf16 activations: under no_grad, and with grad enabled but no input
+    requiring grad, add_rmsnorm / rms_norm_fused call the forward wrapper
+    alone (no autograd Function, no per-call Function overhead on the
+    serving and generation paths); with inputs requiring grad they take the
+    Function. Every route gives the same bits, and the recorded one's
+    gradients match the JAX package's VJP (Pallas in interpret mode, bf16
+    at 1e-2)."""
+    rng = np.random.default_rng(11)
+    rows, wd, eps = 9, 128, 1e-6
+    x, r = rnd(rng, rows, wd), rnd(rng, rows, wd)
+    w = 1 + rnd(rng, wd, scale=0.1)
+    dh, dy = rnd(rng, rows, wd), rnd(rng, rows, wd)
+    bf = torch.bfloat16
+
+    def call(grad):
+        tw, tx, tr = t(w, bf, grad), t(x, bf, grad), t(r, bf, grad)
+        out = (norm.add_rmsnorm(tw, tx, tr, eps) if add
+               else (norm.rms_norm_fused(tw, tx, eps),))
+        return out, (tw, tx, tr)
+
+    fn = norm._AddRMSNorm if add else norm._RMSNorm
+    real = fn.apply
+
+    def refuse(*a):
+        raise AssertionError("the autograd Function was taken")
+    monkeypatch.setattr(fn, "apply", refuse)
+    with torch.no_grad():
+        plain, _ = call(True)
+    plain2, _ = call(False)
+    monkeypatch.setattr(fn, "apply", real)
+    recorded, (tw, tx, tr) = call(True)
+    assert all(o.grad_fn is not None for o in recorded)
+    for a, b, c in zip(plain, plain2, recorded):
+        assert torch.equal(a, b) and torch.equal(a, c.detach())
+    J = lambda a: jnp.asarray(a, jnp.bfloat16)
+    if add:
+        torch.autograd.backward(recorded, (t(dy, bf), t(dh, bf)))
+        _, vjp = jax.vjp(lambda w_, x_, r_: jnorm.add_rmsnorm(
+            w_, x_, r_, eps, interpret=True), J(w), J(x), J(r))
+        jdw, jdx, jdr = vjp((J(dy), J(dh)))
+        close(tr.grad, jdr, 1e-2, "dr")
+    else:
+        recorded[0].backward(t(dh, bf))
+        _, vjp = jax.vjp(lambda w_, x_: jnorm.rms_norm_fused(
+            w_, x_, eps, interpret=True), J(w), J(x))
+        jdw, jdx = vjp(J(dh))
+    close(tx.grad, jdx, 1e-2, "dx")
+    close(tw.grad, jdw, 1e-2, "dw")
+
+
 def test_norm_routes_by_dtype(monkeypatch):
     """fp32 activations take layers.rms_norm (the JAX package's XLA route),
     bf16 ones the kernel's Function."""
