@@ -14,7 +14,8 @@ Phases (any failure raises and the script exits non-zero):
      diffusion UNets and the ViTs give it, with the error, its tolerance
      and both times (kernel A against the plain chain at the UNets'
      cross-attention shapes, the measurement behind that route; kernel H
-     against the fp32 route it replaced);
+     against the fp32 route it replaced and, at every shape its TMA plan
+     takes, against its mma.sync plan, the same bits twice);
   4. a full-width Emu1 cut to 2 layers, built from one seed: last-position
      logits of one caption prompt on the card (bf16, kernels) against the
      CPU (fp32, plain twins);
@@ -99,20 +100,22 @@ TRAIN_B, TRAIN_S, TRAIN_LR = 2, 1024, 5e-3
 # request served over HTTP
 GEN_STEPS, HTTP_GEN_STEPS = 50, 50
 # end-to-end figures of this run, filled by the phases and printed together
-# at the end beside the spread of the three runs of the previous version
-# (PERF.md section 5, before batched_mha's and C's forward's redesign)
+# at the end beside the spread of the two runs of the previous version
+# (PERF.md section 5, before the attention backward's and kernel H's
+# redesign)
 E2E: dict = {}
 EARLIER_E2E = {
-    "emu2 1 image + question, beam 5 prefill ms": (106.48, 132.34),
-    "emu1 caption beam5 encode ms": (50.52, 85.09),
-    "emu1 caption beam5 prefill ms": (54.75, 90.42),
-    "served mix int8 KV tok/s": (20.39, 26.88),
-    "train ms/step": (1570.62, 2162.63),
-    "SDXL UNet ms/step": (122.71, 158.64),
-    "SDXL UNet profiled kernel ms": (110.80, 111.32),
-    "SD1.5 UNet ms/step": (43.76, 64.90),
-    "SD1.5 UNet profiled kernel ms": (23.98, 24.16),
-    "SwiGLU ViT img/s": (177.01, 190.84),
+    "emu2 1 image + question, beam 5 prefill ms": (106.57, 106.77),
+    "emu1 caption beam5 encode ms": (43.76, 47.98),
+    "emu1 caption beam5 prefill ms": (36.80, 45.07),
+    "served mix int8 KV tok/s": (27.30, 34.62),
+    "train ms/step": (1408.00, 1519.14),
+    "SDXL UNet ms/step": (106.72, 107.49),
+    "SDXL UNet profiled kernel ms": (90.07, 90.42),
+    "SDXL UNet kernel H ms": (39.89, 39.89),
+    "SD1.5 UNet ms/step": (52.65, 77.80),
+    "SD1.5 UNet profiled kernel ms": (21.60, 21.83),
+    "SwiGLU ViT img/s": (198.29, 199.19),
 }
 
 
@@ -132,13 +135,15 @@ def card_line() -> str:
 def print_resources(log: str, lib) -> None:
     """Registers, shared memory and spills of the kernels redesigned for
     Hopper (A's forward, the W4A8 GEMM of F and G, batched_mha at each
-    padded width, C's row kernel for bf16 and fp32 weights): `cuobjdump
+    padded width, C's row kernel for bf16 and fp32 weights, the attention
+    backward's dQ and dK/dV kernels at each padded width, H's TMA GEMM):
+    `cuobjdump
     --dump-resource-usage` on the built library (REG per thread, STACK
     bytes, where spills land, static SHARED), ptxas's spill stores/loads
     from the build log when this run built the library, and each kernel's
-    dynamic shared memory from its own plan. With setmaxnreg (F) REG is the
-    launch's allocation; the transform warps then hand some to the
-    consumers."""
+    dynamic shared memory from its own plan. With setmaxnreg (F, dK/dV) REG
+    is the launch's allocation; the transform or producer warps then hand
+    some to the consumers."""
     import re
     from emu_tpu_torch.ops import _cuda
     cuobjdump = Path(_cuda._nvcc()).with_name("cuobjdump")
@@ -162,7 +167,11 @@ def print_resources(log: str, lib) -> None:
            **{f"batched_mha_kernelILi{dp}E": lib.emu_batched_mha_smem(dp)
               for dp in (64, 128, 192, 256)},
            "add_rmsnorm_rows_kernelI13__nv_bfloat16E": 0,
-           "add_rmsnorm_rows_kernelIfE": 0}
+           "add_rmsnorm_rows_kernelIfE": 0,
+           **{f"{kind}_kernelILi{dp}E": lib.emu_attention_bwd_smem(
+               int(kind == "dkv"), dp) for kind in ("dq", "dkv")
+              for dp in (64, 128)},
+           "dense_tma_kernel": lib.emu_fused_dense_smem()}
     seen, name = set(), None
     for line in out.splitlines():   # "Function <name>:" then its REG line
         m = re.search(r"Function ([A-Za-z0-9_]+):", line)
@@ -671,7 +680,8 @@ def check_kernels(card: str) -> dict:
     torch.cuda.empty_cache()
     check_training_kernels(run, randn, attn_cost, results)
     check_diffusion_kernels(run, randn, attn_cost, results)
-    check_dense_and_vit_kernels(run, randn, attn_cost, mlp_cost, results)
+    check_dense_and_vit_kernels(run, randn, attn_cost, mlp_cost, results,
+                                card)
     return results
 
 
@@ -759,14 +769,19 @@ def check_diffusion_kernels(run, randn, attn_cost, results) -> None:
 
 # kernel H's shapes (M, K, N): the plain form at the SDXL UNet's GEGLU
 # proj_in and proj_out and its 64²-level to_out (CFG batch 2), the time
-# embedding, ViT-g's attention proj (8 images); the pre form at the UNet
-# block's norm3 + proj_in (64² level) and ViT-g's LN1 + qkv (32 images);
-# the post form with the residual at EVA-4B's proj + LN + residual (8
-# images)
+# embedding, ViT-g's attention proj (8 images), the short grids of the
+# SD1.5 UNet's 8² level (its to_out and GEGLU proj_out) and of the Causal
+# Former's projection (one image); the pre form at the UNet block's norm3 +
+# proj_in (64² level) and ViT-g's LN1 + qkv (32 images); the post form
+# with the residual at EVA-4B's proj + LN + residual (8 images)
 DENSE_PLAIN = [(2048, 1280, 10240), (2048, 5120, 1280), (8192, 640, 640),
-               (2, 320, 1280), (2056, 1408, 1408)]
+               (2, 320, 1280), (2056, 1408, 1408), (128, 1280, 1280),
+               (128, 5120, 1280), (32, 768, 5120)]
 DENSE_PRE = [(8192, 640, 5120), (8224, 1408, 4224)]
 DENSE_POST = [(8200, 1792, 1792)]
+# the shapes H's mma.sync plan takes: ViT-g's patch embedding (8 images of
+# 256 patches, K = 14 * 14 * 3 = 588, not a multiple of 8)
+DENSE_MMA = [(2048, 588, 1408)]
 # kernel B's SwiGLU form at EVA02-CLIP-L's widths (1024 -> 2730 -> 1024),
 # 8 and 32 images of 257 tokens
 SWIGLU_ROWS = [257 * 8, 257 * 32]
@@ -775,10 +790,12 @@ PACKED_SHAPES = [(32, 257, 16, 88), (8, 1025, 16, 112)]
 
 
 def check_dense_and_vit_kernels(run, randn, attn_cost, mlp_cost,
-                                results) -> None:
+                                results, card: str) -> None:
     """Phase 3, the kernels ported last: H in its three forms (plain, pre,
     post + residual), each also timed against the fp32 route it replaces
-    (`_matmul_f32` + bias, the plain form's twin); B's SwiGLU form; and
+    (`_matmul_f32` + bias, the plain form's twin), the same bits twice at
+    every shape; H's mma.sync plan at the shapes it takes (the time
+    embedding's 2 rows, the patch embedding); B's SwiGLU form; and
     `mha_packed_qkv` on the packed projection. Limits: H plain and pre,
     mha_packed_qkv 1e-2 + 1e-2 * max|ref|; H post + residual and B SwiGLU
     2e-2 + 2e-2 * max|ref| (as B). Library: cuBLAS through torch.addmm
@@ -827,11 +844,41 @@ def check_dense_and_vit_kernels(run, randn, attn_cost, mlp_cost,
             lambda: B.fused_dense_reference(x, w, b, lns, lnb, **kw),
             2e-2, 2e-2, dense_bytes(m, k, n, 8 * n + 2 * m * n),
             2 * m * k * n)
+    for m, k, n in DENSE_MMA:
+        x, w, b = randn(m, k), randn(k, n, std=k ** -0.5), randn(n, std=0.5)
+        if B.fused_dense_plan(m, k, n, True) != "mma":
+            raise AssertionError(f"fused_dense {m}x{k}x{n}: not the mma plan")
+        run(f"fused_dense_mma_{m}x{k}x{n}", lambda: B.fused_dense(x, w, b),
+            lambda: B.fused_dense_reference(x, w, b), 1e-2, 1e-2,
+            dense_bytes(m, k, n), 2 * m * k * n,
+            library=lambda: library(b, x, w))
     for name, r in results.items():
         if name.startswith("fused_dense_"):
             print(f"  {name}: H {r['ms']:.4f} ms against the fp32 route it "
                   f"replaces (x.float() @ w.float() + b, in the twin) "
                   f"{r['plain_ms']:.4f} ms: {r['plain_ms'] / r['ms']:.2f}x")
+    # every shape: the same bits twice, and which plan it took
+    for form, shapes in ((None, DENSE_PLAIN), ("pre", DENSE_PRE),
+                         ("post", DENSE_POST)):
+        for m, k, n in shapes:
+            x, w, b = randn(m, k), randn(k, n, std=k ** -0.5), randn(n)
+            dim = k if form == "pre" else n
+            lns, lnb = ((1 + randn(dim, std=0.1), randn(dim, std=0.1))
+                        if form else (None, None))
+            res = randn(m, n) if form == "post" else None
+
+            def h():
+                return B.fused_dense(x, w, b, lns, lnb, res, ln_mode=form,
+                                     eps=1e-5)
+            if not torch.equal(h(), h()):
+                raise AssertionError(f"fused_dense {form} {m}x{k}x{n}: two "
+                                     "runs gave different bits")
+            name = (f"fused_dense_{form + '_' if form else ''}"
+                    f"{m}x{k}x{n}")
+            r = results[name]
+            print(f"  {name}: plan {B.fused_dense_plan(m, k, n, True)}, the "
+                  f"same bits twice; {r['ms']:.4f} ms (device "
+                  f"{r['device_ms']})  [{card}]")
     torch.cuda.empty_cache()
 
     k, f = 1024, 2730
@@ -1717,6 +1764,10 @@ def profile_unet_step(card: str, pipe, lat: int, ctx_len: int,
         ms for name, ms in by_name.items() if "attention_kernel" in name)
     E2E[f"{unet_name} UNet batched_mha ms"] = sum(
         ms for name, ms in by_name.items() if "batched_mha_kernel" in name)
+    E2E[f"{unet_name} UNet kernel H ms"] = sum(
+        ms for name, ms in by_name.items() if any(
+            k in name for k in ("dense_tma_kernel", "dense_kernel",
+                                "ln_rows_kernel")))
     print(f"  one UNet step under torch.profiler: kernels {busy:.2f} ms "
           f"against {step_ms:.2f} ms unprofiled (busy {busy / step_ms:.2f})"
           f"  [{card}]")
@@ -2205,6 +2256,10 @@ def run_vit_parts(card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# one backward design replaces both TPU tiers: _flash_bwd_whole and
+# _flash_bwd_tiled
+BWD_REPLACES = ("emu_tpu/ops/flash_attention.py:938, "
+                "emu_tpu/ops/flash_attention.py:778")
 KERNELS = [  # name, source, replaces, wrapper, checks (first one timed)
     ("attention", "emu_tpu_torch/csrc/attention.cu",
      "emu_tpu/ops/flash_attention.py:487", "A.attention",
@@ -2226,11 +2281,11 @@ KERNELS = [  # name, source, replaces, wrapper, checks (first one timed)
      "emu_tpu/ops/flash_attention.py:559", "A.attention:lse",
      ["attention_lse_causal_2x40x1024x128"]),
     ("attention_bwd_dq", "emu_tpu_torch/csrc/attention_bwd.cu",
-     "emu_tpu/ops/flash_attention.py:938", "A.attention_bwd_dq",
+     BWD_REPLACES, "A.attention_bwd_dq",
      ["attention_bwd_dq_2x40x1024x128", "attention_bwd_dq_gqa2_2x40x1024x128",
       "attention_bwd_dq_1x8x4096x128"]),
     ("attention_bwd_dkv", "emu_tpu_torch/csrc/attention_bwd.cu",
-     "emu_tpu/ops/flash_attention.py:938", "A.attention_bwd_dkv",
+     BWD_REPLACES, "A.attention_bwd_dkv",
      ["attention_bwd_dkv_2x40x1024x128",
       "attention_bwd_dkv_gqa2_2x40x1024x128",
       "attention_bwd_dkv_1x8x4096x128"]),
@@ -2294,6 +2349,9 @@ KERNELS = [  # name, source, replaces, wrapper, checks (first one timed)
     ("fused_dense_post", "emu_tpu_torch/csrc/fused_dense.cu",
      "emu_tpu/ops/fused_mlp.py:296", "B.fused_dense:post",
      [f"fused_dense_post_{m}x{k}x{n}" for m, k, n in DENSE_POST]),
+    ("fused_dense_mma", "emu_tpu_torch/csrc/fused_dense.cu",
+     "emu_tpu/ops/fused_mlp.py:296", "B.fused_dense:plans/mma",
+     [f"fused_dense_mma_{m}x{k}x{n}" for m, k, n in DENSE_MMA]),
     ("mha_packed_qkv", "emu_tpu_torch/csrc/batched_mha.cu",
      "emu_tpu/ops/flash_attention.py:362", "A.mha_packed_qkv",
      [f"mha_packed_qkv_{b}x{s}x{h}x{d}" for b, s, h, d in PACKED_SHAPES]),
@@ -2301,19 +2359,21 @@ KERNELS = [  # name, source, replaces, wrapper, checks (first one timed)
 
 
 class FormCount:
-    """A launch count of one form of a wrapper (kernel D's `forms`), read
-    and reset like a wrapper's own `launches`."""
+    """A launch count of one form of a wrapper (kernel D's `forms`; "plans/
+    mma" reads kernel H's `plans`), read and reset like a wrapper's own
+    `launches`."""
 
     def __init__(self, fn, form: str):
-        self.fn, self.form = fn, form
+        table, _, self.form = form.rpartition("/")
+        self.table = getattr(fn, table or "forms")
 
     @property
     def launches(self) -> int:
-        return self.fn.forms[self.form]
+        return self.table[self.form]
 
     @launches.setter
     def launches(self, value: int) -> None:
-        self.fn.forms[self.form] = value
+        self.table[self.form] = value
 
 
 def drive(label: str, wrappers: dict, needed, fn, *args):
@@ -2397,7 +2457,8 @@ def main() -> int:
     print("[5] full-depth Emu1 through Emu1Runner")
     count(drive("Emu1 caption", wrappers,
                 ["attention", "fused_mlp", "add_rmsnorm", "decode_attention",
-                 "fused_dense"], run_full, card, images)[0])
+                 "fused_dense", "fused_dense_mma"], run_full, card,
+                images)[0])
     print("[6] 2-layer full-width Emu2-Chat: card (bf16, int4) vs CPU fp32")
     count(drive("Emu2 2-layer bf16 and int4", wrappers,
                 ["attention", "fused_mlp", "add_rmsnorm", "matmul_q4"],
@@ -2466,7 +2527,7 @@ def main() -> int:
                 ["fused_dense_pre", "fused_dense_post", "mha_packed_qkv",
                  "batched_mha", "attention", "fused_mlp"],
                 run_vit_parts, card)[0])
-    print("  end-to-end figures, this run (the previous version's three runs,"
+    print("  end-to-end figures, this run (the previous version's two runs,"
           " PERF.md section 5):")
     for key, value in E2E.items():
         was = EARLIER_E2E.get(key)

@@ -1,5 +1,6 @@
-// Pieces shared by the two attention forwards built on TMA and wgmma:
-// kernel A (attention.cu) and batched_mha (batched_mha.cu).
+// Pieces shared by the attention kernels built on TMA and wgmma: kernel A
+// (attention.cu), batched_mha (batched_mha.cu) and the backward
+// (attention_bwd.cu, whose dQ += dS.K and dV += P^T.dO are pv_wgmma's form).
 //
 // - bhsd_map: a TMA tensor map over a strided [B, H, S, D] (or token-major
 //   [B, S, H, D]) bf16 view, boxes of 64 columns x `rows` rows in the

@@ -18,17 +18,32 @@
 // cores, not the memory, are the limit; at decode-sized M (the time
 // embedding's 2 rows) it reads W once and is bound by bytes.
 //
-// Design, a simple first version (wgmma and TMA are later work): block
-// tiles of 128 x 128 output elements, 8 warps each owning 64 x 32 of it as
-// 4 x 4 mma.sync m16n8k16 tiles (64 fp32 accumulators a thread), K walked
-// 32 at a time through a 3-stage cp.async ring in shared memory (two
-// stages in flight while the tensor cores read the third), operands
-// fetched with ldmatrix (B transposed on the way: W is row-major [K, N]).
-// Rows of 40 and 136 bf16 keep the 8 addresses of each ldmatrix phase on
-// distinct banks. Ragged M, N and K edges are zero-filled on load and
-// masked on store, so any shape works; where K or N is not a multiple of 8
-// (the ViTs' patch embedding, K = 14 * 14 * 3 = 588) or a pointer is not
-// 16-byte aligned, the tiles are loaded element by element instead.
+// Two GEMM plans, chosen by shape on the host (`ops/fused_mlp.py:
+// fused_dense_plan`, which the wrapper passes down; neither is a fallback
+// for the other):
+//
+// - TMA (K and N multiples of 8, x and W 16-byte aligned, more than
+//   DENSE_MMA_ROWS rows): 128 x 128 output tiles, two consumer warpgroups of
+//   64 rows each and one producer warp that keeps a 3-stage ring of x tiles
+//   (128 x 64, K-major) and W tiles (64 x 128, read N-major: the
+//   transposed-B form of wgmma) in flight through TMA behind mbarriers, the
+//   128-byte swizzle, zero-filled past M, N and K; the products are SS
+//   wgmma m64n128k16 with the accumulator in registers, one group in flight
+//   while the next stage lands. At 96 KB of shared memory two blocks share
+//   an SM, so one block's epilogue overlaps the other's products. Each
+//   block walks all of K: on grids too short to fill the card (M of 32-578
+//   rows) a split of K into fp32 partial sums took less card time but cost
+//   the host a second launch and a workspace, and those calls wait on the
+//   host (PERF.md section 6, kernel H).
+// - mma.sync (the rest: the ViTs' patch embedding, K = 14 * 14 * 3 = 588;
+//   ragged N; unaligned views): the first GEMM, block tiles of 128 x 128
+//   output elements, 8 warps each owning 64 x 32 of it as 4 x 4 mma.sync
+//   m16n8k16 tiles, K walked 32 at a time through a 3-stage cp.async ring,
+//   operands fetched with ldmatrix (B transposed on the way). Rows of 40 and
+//   136 bf16 keep the 8 addresses of each ldmatrix phase on distinct banks.
+//   Ragged M, N and K edges are zero-filled on load and masked on store;
+//   where K or N is not a multiple of 8 or a pointer is not 16-byte
+//   aligned, the tiles are loaded element by element.
 //
 // Pre form (LN -> dense): a row pass first writes xn = bf16(LN(x)) in fp32
 // arithmetic to a [M, K] workspace, the TPU kernel's `xn` scratch
@@ -51,6 +66,9 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -83,7 +101,10 @@ struct DenseArgs {
   int M, K, N, mode;
 };
 
-__device__ inline void cp_async16(void* dst, const void* src, int src_bytes) {
+// The mma.sync plan's copy as it was first written and measured: unlike
+// hopper.cuh's cp_async16 it has no "memory" clobber (the ring's
+// wait_group and __syncthreads order it).
+__device__ inline void cp_async16_ring(void* dst, const void* src, int src_bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                "l"(src), "r"(src_bytes));
@@ -133,14 +154,14 @@ __device__ inline void load_stage(const DenseArgs& a, bf16* as, bf16* bs, int m0
     for (int c = threadIdx.x; c < BM * BK / 8; c += THREADS) {
       const int r = c / (BK / 8), col = (c % (BK / 8)) * 8;
       const bool ok = m0 + r < a.M && k0 + col < a.K;
-      cp_async16(as + r * LDA + col,
+      cp_async16_ring(as + r * LDA + col,
                  ok ? a.x + static_cast<long long>(m0 + r) * a.K + k0 + col : a.x,
                  ok ? 16 : 0);
     }
     for (int c = threadIdx.x; c < BK * BN / 8; c += THREADS) {
       const int r = c / (BN / 8), col = (c % (BN / 8)) * 8;
       const bool ok = k0 + r < a.K && n0 + col < a.N;
-      cp_async16(bs + r * LDB + col,
+      cp_async16_ring(bs + r * LDB + col,
                  ok ? a.w + static_cast<long long>(k0 + r) * a.N + n0 + col : a.w,
                  ok ? 16 : 0);
     }
@@ -308,24 +329,141 @@ cudaError_t launch_gemm(const DenseArgs& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// ---- the TMA plan ----------------------------------------------------------
+
+// Output tiles of 128 x 128, K 64 a stage, a 3-stage ring: 96 KB, so two
+// blocks share an SM. (Tiles of 128 x 256 with a 4-stage ring, one block an
+// SM, measured slower at every UNet shape but one.)
+struct TmaPlan {
+  static constexpr int BM = 128, BN = 128, BK = 64;
+  static constexpr int STAGES = 3;
+  static constexpr int A_BYTES = BM * BK * 2;  // an x tile [128][64]
+  static constexpr int B_BYTES = BK * BN * 2;  // a W tile: two [64 k][64 n] boxes
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int BAR_OFF = STAGES * STAGE_BYTES;
+  static constexpr int SMEM = BAR_OFF + 8 * 2 * STAGES + 1024;
+};
+constexpr int T_THREADS = 2 * 128 + 32;  // two consumer warpgroups, a producer warp
+
+// One 128 x 128 output tile over all of K, 64 a step, then the epilogue
+// (bias, then the post form's fp32 ws or residual and one rounding).
+__global__ void __launch_bounds__(T_THREADS, 2)
+    dense_tma_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap wmap, const DenseArgs a) {
+  using Plan = TmaPlan;
+  constexpr int STAGES = Plan::STAGES, BN = Plan::BN;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Plan::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * Plan::BM;
+  const int steps = (a.K + Plan::BK - 1) / Plan::BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 8) {
+    // ---- producer: one thread issues every copy ----
+    if (lane == 0) {
+      for (int i = 0; i < steps; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) + 1) & 1);
+        unsigned char* st = smem + s * Plan::STAGE_BYTES;
+        const int k0 = i * Plan::BK;
+        mbar_arrive_tx(&full[s], Plan::STAGE_BYTES);
+        tma_load_2d(st, &xmap, &full[s], k0, m0);
+        for (int c = 0; c < BN / 64; ++c)
+          tma_load_2d(st + Plan::A_BYTES + c * 64 * 128, &wmap, &full[s], n0 + c * 64, k0);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: 64 rows of the tile each ----
+  const int wg = warp / 4, g = lane / 4, t = lane % 4;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < steps; ++i) {
+    const int s = i % STAGES;
+    const unsigned char* st = smem + s * Plan::STAGE_BYTES;
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < Plan::BK / 16; ++kk)
+      wgmma_bf16_ss_tb_n128(acc, smem_desc(st + wg * 64 * 128 + kk * 32, 16, 1024),
+                            smem_desc(st + Plan::A_BYTES + kk * 16 * 128, 64 * 128, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products have landed
+    fence_acc(acc);
+    if (i > 0) mbar_arrive(&empty[(i - 1) % STAGES]);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // accumulator j: rows g and g + 8 of the warp's 16, columns j * 8 + 2t, + 1
+  const int row = m0 + wg * 64 + (warp % 4) * 16 + g;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = n0 + j * 8 + 2 * t;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      store_pair(a, row + 8 * r, col, acc[j * 4 + 2 * r], acc[j * 4 + 2 * r + 1]);
+  }
+}
+
+// The shared-memory attribute is set first: that runtime call binds the
+// card's context to the calling thread, which the tensor-map encoder needs.
+cudaError_t launch_tma(const DenseArgs& a, cudaStream_t s) {
+  using Plan = TmaPlan;
+  cudaError_t err = cudaFuncSetAttribute(dense_tma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, Plan::SMEM);
+  if (err != cudaSuccess) return err;
+  CUtensorMap xmap, wmap;
+  const uint64_t xdims[2] = {static_cast<uint64_t>(a.K), static_cast<uint64_t>(a.M)};
+  const uint64_t xstr[1] = {static_cast<uint64_t>(a.K) * 2};
+  const uint32_t xbox[2] = {Plan::BK, Plan::BM};
+  const uint64_t wdims[2] = {static_cast<uint64_t>(a.N), static_cast<uint64_t>(a.K)};
+  const uint64_t wstr[1] = {static_cast<uint64_t>(a.N) * 2};
+  const uint32_t wbox[2] = {64, Plan::BK};
+  if (!make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.x, xdims, xstr, xbox) ||
+      !make_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.w, wdims, wstr, wbox))
+    return cudaErrorInvalidValue;
+  const dim3 grid((a.N + Plan::BN - 1) / Plan::BN, (a.M + Plan::BM - 1) / Plan::BM);
+  dense_tma_kernel<<<grid, T_THREADS, Plan::SMEM, s>>>(xmap, wmap, a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x [M, K], w [K, N], res and out [M, N]: bf16, contiguous. bias [N] and
 // the LayerNorm's ln_s, ln_b ([K] for mode 1, [N] for mode 2): bf16 when
 // vec_bf16 is set, else fp32, read as they are and widened to fp32 in the
-// kernel; bias and res may be null. mode 0: plain; 1: LayerNorm of x first (xn: a bf16
-// [M, K] workspace); 2: LayerNorm over each output row (ws: an fp32 [M, N]
-// workspace). Launches on `stream`; returns cudaGetLastError().
+// kernel; bias and res may be null. mode 0: plain; 1: LayerNorm of x first
+// (xn: a bf16 [M, K] workspace); 2: LayerNorm over each output row (ws: an
+// fp32 [M, N] workspace). plan 0: the mma.sync GEMM; 1: the TMA GEMM (K, N
+// multiples of 8, 16-byte aligned x or xn and w; refused otherwise).
+// Launches on `stream`; returns cudaGetLastError().
 extern "C" int emu_fused_dense_fwd(const void* x, const void* w, const void* bias,
                                    const void* ln_s, const void* ln_b, const void* res,
                                    void* xn, void* ws, void* out, int M, int K, int N,
-                                   int mode, int vec_bf16, float eps, void* stream) {
+                                   int mode, int vec_bf16, int plan, float eps, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || mode < PLAIN || mode > POST
       || (mode != PLAIN && (ln_s == nullptr || ln_b == nullptr))
-      || (mode == PRE && xn == nullptr) || (mode == POST && ws == nullptr))
+      || (mode == PRE && xn == nullptr) || (mode == POST && ws == nullptr)
+      || plan < 0 || plan > 1)
     return static_cast<int>(cudaErrorInvalidValue);
   DenseArgs a;
-  a.x = static_cast<const bf16*>(x);
+  a.x = static_cast<const bf16*>(mode == PRE ? xn : x);
   a.w = static_cast<const bf16*>(w);
   a.bias = bias;
   a.ln_s = ln_s;
@@ -335,17 +473,19 @@ extern "C" int emu_fused_dense_fwd(const void* x, const void* w, const void* bia
   a.ws = static_cast<float*>(ws);
   a.out = static_cast<bf16*>(out);
   a.M = M; a.K = K; a.N = N; a.mode = mode;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode == PRE) {
-    ln_rows_kernel<bf16><<<M, 256, 0, s>>>(a.x, a.ln_s, a.ln_b, a.vec_bf16, nullptr,
-                                           static_cast<bf16*>(xn), K, eps);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    a.x = static_cast<const bf16*>(xn);
-  }
   const bool vec = K % 8 == 0 && N % 8 == 0 && reinterpret_cast<uintptr_t>(a.x) % 16 == 0
                    && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  cudaError_t err = vec ? launch_gemm<true>(a, s) : launch_gemm<false>(a, s);
+  if (plan == 1 && !vec) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == PRE) {
+    ln_rows_kernel<bf16><<<M, 256, 0, s>>>(static_cast<const bf16*>(x), a.ln_s, a.ln_b,
+                                           a.vec_bf16, nullptr, static_cast<bf16*>(xn), K, eps);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaError_t err = plan == 1 ? launch_tma(a, s)
+                    : vec     ? launch_gemm<true>(a, s)
+                              : launch_gemm<false>(a, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (mode == POST) {
     ln_rows_kernel<float><<<M, 256, 0, s>>>(a.ws, a.ln_s, a.ln_b, a.vec_bf16, a.res, a.out,
@@ -354,3 +494,6 @@ extern "C" int emu_fused_dense_fwd(const void* x, const void* w, const void* bia
   }
   return static_cast<int>(cudaSuccess);
 }
+
+// Dynamic shared memory of a TMA-plan block (chip_smoke prints it).
+extern "C" int emu_fused_dense_smem() { return TmaPlan::SMEM; }

@@ -1,7 +1,7 @@
-// Hopper building blocks shared by the redesigned kernels A (attention.cu)
-// and F (q4_matmul.cu): mbarriers, TMA tile loads, cp.async into an
-// mbarrier-tracked ring, wgmma shared-memory descriptors and the
-// warpgroup fences, and host-side tensor-map encoding.
+// Hopper building blocks shared by the redesigned kernels (A and its
+// backward, batched_mha, F and G, H's TMA plan): mbarriers, TMA tile
+// loads, cp.async into an mbarrier-tracked ring, wgmma shared-memory
+// descriptors and the warpgroup fences, and host-side tensor-map encoding.
 //
 // The tensor map needs the driver's cuTensorMapEncodeTiled. It is reached
 // through the runtime's cudaGetDriverEntryPoint, so the library links only

@@ -15,9 +15,9 @@ of `emu_tpu/ops/flash_attention.py`:
   64-column tiles with an online softmax at every length and skips the
   causal tiles right of the diagonal.
 
-The backward kernels (`csrc/attention_bwd.cu`, dQ and dK/dV) take the place
-of `_flash_bwd_whole` and `_flash_bwd_tiled`, the recompute-based backward
-of `_flash_diff`.
+The backward kernels (`csrc/attention_bwd.cu`, dQ and dK/dV, TMA + wgmma)
+take the place of `_flash_bwd_whole` and `_flash_bwd_tiled`, the
+recompute-based backward of `_flash_diff`.
 
 `batched_mha` (`csrc/batched_mha.cu`) replaces the TPU's `batched_mha`,
 the unmasked token-major attention of the UNets' latent self-attention,
@@ -193,6 +193,36 @@ def attention_bwd_reference(q, k, v, o, lse, do, kv_valid=None, *,
                           scale, causal)
 
 
+def _bwd_check(name, q, k, v, o, lse, do, dvec, kv_valid):
+    """The backward kernels' envelope: q/o/do [B, H, Sq, D] and k/v
+    [B, Hkv, Skv, D] bf16 views (H a multiple of Hkv) with a contiguous
+    last dim, 16-byte aligned strides and bases, and no broadcast dim in
+    the tensor-mapped q, k, v, do; D % 8 == 0 and D <= A_MAX_D; lse and
+    dvec fp32 [B, H, Sq]; kv_valid [B, Skv]. Raises ValueError, else
+    returns kv_valid as the kernels read it (bool, contiguous, on q's
+    card). o is None for the dK/dV kernel."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    _cuda.require(k.shape == v.shape == (b, hkv, skv, d) and h % hkv == 0
+                  and do.shape == q.shape and lse.shape == (b, h, sq)
+                  and lse.dtype == dvec.dtype == torch.float32
+                  and dvec.shape == (b, h, sq)
+                  and (o is None or o.shape == q.shape),
+                  f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+                  f"do{tuple(do.shape)} lse{tuple(lse.shape)}")
+    _cuda.require(d % 8 == 0 and d <= A_MAX_D,
+                  f"{name}: head dim {d} must be a multiple of 8, <= "
+                  f"{A_MAX_D}")
+    _check_bhsd(name, ("q", q), ("k", k), ("v", v), ("do", do), maps=True)
+    if o is not None:
+        _check_bhsd(name, ("o", o))
+    if kv_valid is not None:
+        _cuda.require(kv_valid.shape == (b, skv),
+                      f"{name}: kv_valid must be [{b}, {skv}]")
+        kv_valid = kv_valid.to(device=q.device, dtype=torch.bool).contiguous()
+    return kv_valid
+
+
 def _bwd_launch(entry, name, q, k, v, o, lse, do, dvec, kv_valid, dq, dk,
                 dv, scale, causal):
     """Checks shared by the two backward kernels, then one launch; the
@@ -200,22 +230,7 @@ def _bwd_launch(entry, name, q, k, v, o, lse, do, dvec, kv_valid, dq, dk,
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     _cuda.refuse_grad(name, q, k, v, o, do)
-    _cuda.require(k.shape == v.shape == (b, hkv, skv, d) and h % hkv == 0
-                  and do.shape == q.shape and lse.shape == (b, h, sq)
-                  and lse.dtype == dvec.dtype == torch.float32
-                  and dvec.shape == (b, h, sq),
-                  f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
-                  f"do{tuple(do.shape)} lse{tuple(lse.shape)}")
-    _cuda.require(d % 8 == 0 and d <= A_MAX_D,
-                  f"{name}: head dim {d} must be a multiple of 8, <= "
-                  f"{A_MAX_D}")
-    _check_bhsd(name, *((n, t) for n, t in (("q", q), ("k", k), ("v", v),
-                                            ("o", o), ("do", do))
-                        if t is not None))
-    if kv_valid is not None:
-        _cuda.require(kv_valid.shape == (b, skv),
-                      f"{name}: kv_valid must be [{b}, {skv}]")
-        kv_valid = kv_valid.to(device=q.device, dtype=torch.bool).contiguous()
+    kv_valid = _bwd_check(name, q, k, v, o, lse, do, dvec, kv_valid)
     strides = (ctypes.c_longlong * 24)(*(
         s for t in (q, k, v, o, do, dq, dk, dv)
         for s in (t.stride()[:3] if t is not None else (0, 0, 0))))
@@ -231,9 +246,12 @@ def _bwd_launch(entry, name, q, k, v, o, lse, do, dvec, kv_valid, dq, dk,
 
 def _bwd_do(do):
     """The cotangent as the kernels read it: unit last stride, 16-byte
-    aligned rows."""
-    if (do.stride(-1) == 1 and all(s % 8 == 0 for s in do.stride()[:3])
-            and do.data_ptr() % 16 == 0):
+    aligned rows and no broadcast dim (what a tensor map can step); any
+    other view is copied."""
+    st = do.stride()
+    if (st[-1] == 1 and all(s % 8 == 0 for s in st[:3])
+            and do.data_ptr() % 16 == 0
+            and not any(s == 0 and n > 1 for n, s in zip(do.shape, st[:3]))):
         return do
     return do.contiguous()
 
@@ -248,7 +266,6 @@ def attention_bwd_dq(q, k, v, o, lse, do, kv_valid=None, *, scale: float,
                                causal)[0], d_row)
     b, h, sq, d = q.shape
     do = _bwd_do(do)
-    _cuda.require(o.shape == q.shape, "attention_bwd_dq: o must match q")
     dvec = torch.empty(b, h, sq, device=q.device, dtype=torch.float32)
     dq = torch.empty(b, sq, h, d, device=q.device, dtype=q.dtype
                      ).transpose(1, 2)

@@ -15,7 +15,8 @@ re-quantized per row within each block of `bf` hidden columns.
 Kernel H (`csrc/fused_dense.cu`) replaces `fused_dense`: [LN(x) →] x·W +
 b [→ LN over the row] [+ residual], the product on the tensor cores in
 fp32, one rounding at the end. Its plain form carries every biased bf16
-dense of the port (`layers.dense`, `dense_plan`).
+dense of the port (`layers.dense`, `dense_plan`). `fused_dense_plan`
+chooses its GEMM by shape: the TMA + wgmma plan or the mma.sync plan.
 
 `fused_mlp`, `fused_mlp_w8a8` and `fused_dense` are the wrappers: on a CPU
 tensor each runs its plain twin (`*_reference`); on a CUDA tensor it
@@ -285,6 +286,23 @@ def fused_dense_reference(x, w, b=None, ln_scale=None, ln_bias=None,
 
 
 _DENSE_MODES = {None: 0, "pre": 1, "post": 2}
+_DENSE_PLANS = {"mma": 0, "tma": 1}
+# Aligned denses of at most this many rows keep the mma.sync plan. At the
+# UNets' 2-row time embedding (2 x 320 -> 1280) a call costs the host more
+# than the card, and the mma.sync plan's call (one launch, no tensor maps)
+# measured faster by CUDA events on an H100 than the TMA plan's (PERF.md
+# section 6, kernel H).
+DENSE_MMA_ROWS = 2
+
+
+def fused_dense_plan(m: int, k: int, n: int, aligned: bool) -> str:
+    """Kernel H's GEMM for an [m, k] x [k, n] product: "tma" (the TMA +
+    wgmma GEMM) for K and N multiples of 8 with x and w 16-byte aligned
+    (`aligned`) above DENSE_MMA_ROWS rows, "mma" (the mma.sync GEMM) for
+    the rest."""
+    if aligned and k % 8 == 0 and n % 8 == 0 and m > DENSE_MMA_ROWS:
+        return "tma"
+    return "mma"
 
 
 def fused_dense(x, w, b=None, ln_scale=None, ln_bias=None, residual=None, *,
@@ -337,17 +355,22 @@ def fused_dense(x, w, b=None, ln_scale=None, ln_bias=None, residual=None, *,
           if ln_mode == "pre" else None)
     ws = (torch.empty(m, n, device=x.device, dtype=torch.float32)
           if ln_mode == "post" else None)
+    # the pre form's GEMM reads its fresh (aligned) xn workspace
+    plan = fused_dense_plan(m, k, n, w.data_ptr() % 16 == 0 and (
+        xn is not None or xf.data_ptr() % 16 == 0))
     with _cuda.device_of(x):
         status = _cuda.library().emu_fused_dense_fwd(
             xf.data_ptr(), w.data_ptr(), _cuda.ptr(b), _cuda.ptr(ln_scale),
             _cuda.ptr(ln_bias), _cuda.ptr(residual), _cuda.ptr(xn),
             _cuda.ptr(ws), out.data_ptr(), m, k, n, _DENSE_MODES[ln_mode],
-            int(vec_bf16), float(eps), _cuda.stream(x))
+            int(vec_bf16), _DENSE_PLANS[plan], float(eps), _cuda.stream(x))
     _cuda.check(status, "fused_dense")
     fused_dense.launches += 1
     fused_dense.forms[ln_mode or "plain"] += 1
+    fused_dense.plans[plan] += 1
     return out.reshape(*lead, n)
 
 
 fused_dense.launches = 0
 fused_dense.forms = {"plain": 0, "pre": 0, "post": 0}
+fused_dense.plans = {"tma": 0, "mma": 0}

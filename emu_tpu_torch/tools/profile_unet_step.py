@@ -14,7 +14,10 @@ one CFG batch of 2, it prints:
   of its first level with attention, [2·4096, C] → C): host µs a call (no
   synchronisation between calls) and device ms, for `ops.layers.dense`
   (whatever route the tree takes) and for the fp32 composition
-  `x.float() @ w.float() + b`; the same for kernel A
+  `x.float() @ w.float() + b`; `ops.layers.dense` also at the innermost
+  level's shortest grids, its to_out and GEGLU proj_out ([2·side², C] →
+  C and [2·side², 4C] → C, C the widest channel count); the same for
+  kernel A
   (`ops.flash_attention.attention`) on that level's self-attention and
   for `batched_mha` on the next level's (token-major views of one
   projection, as the UNet passes them), each kernel also with its card
@@ -127,9 +130,21 @@ def profile_model(name: str, out=print) -> dict:
     c2, h2 = cfg.block_out_channels[i + 1], cfg.attention_head_dim[i + 1]
     mqkv = torch.randn(2, (lat >> (i + 1)) ** 2, 3, h2, c2 // h2, device=dev,
                        generator=gen).to(bf).unbind(2)
+    # the innermost level (the mid block): the shortest grids
+    cm, rows = cfg.block_out_channels[-1], 2 * (lat >> (
+        len(cfg.block_out_channels) - 1)) ** 2
+    mid = {}
+    for key, kin in (("mid_dense", cm), ("mid_geglu_out", 4 * cm)):
+        mid[key] = (torch.randn(rows, kin, device=dev, generator=gen).to(bf),
+                    {"kernel": (torch.randn(kin, cm, device=dev, generator=gen)
+                                * kin ** -0.5).to(bf),
+                     "bias": torch.randn(cm, device=dev, generator=gen
+                                         ).to(bf)})
     res = {"model": name, "latent": lat, "context": [2, ctx_len,
                                                      cfg.cross_attention_dim],
            "dense_shape": [dx.shape[0], c, c],
+           "mid_dense_shape": [rows, cm, cm],
+           "mid_geglu_out_shape": [rows, 4 * cm, cm],
            "attention_shape": list(qkv.shape[1:]),
            "batched_mha_shape": list(mqkv[0].shape)}
 
@@ -142,6 +157,9 @@ def profile_model(name: str, out=print) -> dict:
                 ("dense", shape, lambda: L.dense(dp, dx)),
                 ("fp32_composition", shape, lambda: (L._matmul_f32(
                     dx, dp["kernel"]) + dp["bias"].float()).to(bf)),
+                *((key, f"[{rows}, {xm.shape[1]}] -> {cm}",
+                   lambda xm=xm, pm=pm: L.dense(pm, xm))
+                  for key, (xm, pm) in mid.items()),
                 ("attention", "x".join(map(str, qkv.shape[1:])),
                  lambda: A.attention(*qkv, scale=(c // heads) ** -0.5)),
                 ("batched_mha", "x".join(map(str, mqkv[0].shape)),

@@ -144,9 +144,17 @@ def test_fused_mlp_swiglu_kernel(gen, m, f, ln_mode, bias):
     (130, 256, 200, None, False, True),      # ragged N, no bias, residual
     (129, 512, 384, "post", True, True),     # post-LN + residual
     (70, 96, 1792, "post", False, False),
-    (5, 64, 60, "pre", False, True)])
+    (5, 64, 60, "pre", False, True),
+    (300, 640, 200, None, True, False),      # TMA plan: ragged M, N % 128 != 0
+    (300, 96, 1280, None, True, True),       # TMA plan: K % 64 != 0
+    (64, 4096, 256, None, True, False),      # a short grid, a long K
+    (64, 4096, 256, "post", True, True),     # the same, post-LN + residual
+    (16, 1024, 1024, "pre", True, False),    # the same after the LN pass
+    (2048, 5120, 1280, None, True, False)])  # the SDXL GEGLU proj_out
 def test_fused_dense_kernel(gen, m, k, n, ln_mode, bias, res):
-    """Kernel H in every form against its twin, with ragged M, N and K."""
+    """Kernel H in every form against its twin, with ragged M, N and K, on
+    the plan `fused_dense_plan` chooses (its counter says which), the same
+    bits on a second run."""
     x, w = randn(gen, m, k), randn(gen, k, n, std=k ** -0.5)
     b = randn(gen, n) if bias else None
     r = randn(gen, m, n) if res else None
@@ -156,13 +164,35 @@ def test_fused_dense_kernel(gen, m, k, n, ln_mode, bias, res):
         kw.update(ln_scale=1 + randn(gen, dim, std=0.1),
                   ln_bias=randn(gen, dim, std=0.1))
     form = ln_mode or "plain"
-    before = B.fused_dense.forms[form]
+    plan = B.fused_dense_plan(m, k, n, True)
+    before = B.fused_dense.forms[form], B.fused_dense.plans[plan]
     got = launched(B.fused_dense,
                    lambda: B.fused_dense(x, w, b, residual=r, **kw))
-    assert B.fused_dense.forms[form] == before + 1
+    assert (B.fused_dense.forms[form], B.fused_dense.plans[plan]) == (
+        before[0] + 1, before[1] + 1)
     assert got.shape == (m, n)
     assert_close(got, B.fused_dense_reference(x, w, b, residual=r, **kw),
                  tol=1e-2)
+    assert torch.equal(got, B.fused_dense(x, w, b, residual=r, **kw))
+
+
+@pytest.mark.parametrize("m,k,n", [(3, 320, 1280), (300, 640, 200),
+                                   (64, 4096, 256)])
+def test_fused_dense_plans_agree(gen, m, k, n):
+    """Both GEMM plans give the twin's result at one shape: x 16-byte
+    aligned takes the TMA plan, the same values at an offset of one
+    element (contiguous, so not copied) the mma.sync plan."""
+    x, w = randn(gen, m, k), randn(gen, k, n, std=k ** -0.5)
+    b = randn(gen, n)
+    ref = B.fused_dense_reference(x, w, b)
+    shifted = torch.empty(m * k + 1, device=x.device, dtype=x.dtype)
+    shifted[1:] = x.reshape(-1)
+    for plan, xin in (("tma", x), ("mma", shifted[1:].view(m, k))):
+        before = B.fused_dense.plans[plan]
+        got = B.fused_dense(xin, w, b)
+        torch.cuda.synchronize()
+        assert B.fused_dense.plans[plan] == before + 1
+        assert_close(got, ref, tol=1e-2)
 
 
 @pytest.mark.parametrize("ln_mode", [None, "pre", "post"])
@@ -536,11 +566,17 @@ def test_attention_lse_kernel(gen, b, h, hkv, sq, skv, d, causal):
 @pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal", [
     (2, 4, 4, 200, 200, 128, True),
     (2, 4, 2, 70, 300, 64, True),
-    (1, 2, 1, 130, 130, 88, False)])
+    (1, 2, 1, 130, 130, 88, False),
+    (2, 2, 2, 1024, 1024, 64, True),    # the train length, a left-padded row
+    (2, 2, 2, 1024, 1024, 128, True),
+    (2, 2, 1, 300, 170, 40, True),      # Sq > Skv: blind rows (the diagonal)
+    (1, 2, 2, 130, 333, 96, True),      # Sq != Skv, ragged on the 128-row tile
+    (1, 4, 2, 257, 257, 128, False),    # GQA rep 2
+    (1, 2, 2, 4096, 4096, 128, True)])  # 4096 causal keys
 def test_attention_backward_kernels(gen, b, h, hkv, sq, skv, d, causal):
     """The dQ and dK/dV kernels against the twin (left-padded kv_valid, rows
-    that see no key, GQA, D = 88); dK/dV the same bits on a second run; the
-    autograd Function reaches them."""
+    that see no key, GQA, D = 40-128, Sq != Skv both ways); dQ and dK/dV the
+    same bits on a second run; the autograd Function reaches them."""
     q = randn(gen, b, h, sq, d)
     k, v = randn(gen, b, hkv, skv, d), randn(gen, b, hkv, skv, d)
     do = randn(gen, b, h, sq, d)
@@ -558,6 +594,8 @@ def test_attention_backward_kernels(gen, b, h, hkv, sq, skv, d, causal):
         assert_close_blocks(got, r)
     again = A.attention_bwd_dkv(q, k, v, lse, do, d_row, valid, **kw)
     assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
+    assert torch.equal(A.attention_bwd_dq(q, k, v, o, lse, do, valid,
+                                          **kw)[0], dq)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     before = A.attention_bwd_dkv.launches
     out = A.attention(*leaves, kv_valid=valid, **kw)
