@@ -15,7 +15,10 @@ Phases (any failure raises and the script exits non-zero):
      and both times (kernel A against the plain chain at the UNets'
      cross-attention shapes, the measurement behind that route; kernel H
      against the fp32 route it replaced and, at every shape its TMA plan
-     takes, against its mma.sync plan, the same bits twice);
+     takes, against its mma.sync plan, the same bits twice; kernel D's
+     four forms, with the plan each launch took, and kernel G at 1, 5 and
+     the continuous engine's 8 rows, the same bits twice; D int8 also at
+     the engine's occupancy, rows of 16-264 in its 1024 slots);
   4. a full-width Emu1 cut to 2 layers, built from one seed: last-position
      logits of one caption prompt on the card (bf16, kernels) against the
      CPU (fp32, plain twins);
@@ -101,21 +104,25 @@ TRAIN_B, TRAIN_S, TRAIN_LR = 2, 1024, 5e-3
 GEN_STEPS, HTTP_GEN_STEPS = 50, 50
 # end-to-end figures of this run, filled by the phases and printed together
 # at the end beside the spread of the two runs of the previous version
-# (PERF.md section 5, before the attention backward's and kernel H's
-# redesign)
+# (PERF.md section 5: the `git archive` and working-tree runs of the
+# version before kernel D's and G's redesign)
 E2E: dict = {}
 EARLIER_E2E = {
-    "emu2 1 image + question, beam 5 prefill ms": (106.57, 106.77),
-    "emu1 caption beam5 encode ms": (43.76, 47.98),
-    "emu1 caption beam5 prefill ms": (36.80, 45.07),
-    "served mix int8 KV tok/s": (27.30, 34.62),
-    "train ms/step": (1408.00, 1519.14),
-    "SDXL UNet ms/step": (106.72, 107.49),
-    "SDXL UNet profiled kernel ms": (90.07, 90.42),
-    "SDXL UNet kernel H ms": (39.89, 39.89),
-    "SD1.5 UNet ms/step": (52.65, 77.80),
-    "SD1.5 UNet profiled kernel ms": (21.60, 21.83),
-    "SwiGLU ViT img/s": (198.29, 199.19),
+    "emu2 1 image + question, beam 5 prefill ms": (106.67, 107.10),
+    "emu2 1 image + question, beam 5 decode ms/step": (47.37, 50.60),
+    "emu1 caption beam5 encode ms": (81.46, 83.47),
+    "emu1 caption beam5 prefill ms": (59.77, 66.06),
+    "emu1 caption beam5 decode ms/step": (38.48, 41.29),
+    "served mix int8 KV tok/s": (23.10, 32.52),
+    "engine decode step alone ms": (45.53, 84.91),
+    "engine decode step kernel ms": (42.56, 43.02),
+    "train ms/step": (1404.04, 1867.40),
+    "SDXL UNet ms/step": (101.12, 130.23),
+    "SDXL UNet profiled kernel ms": (69.52, 69.61),
+    "SDXL UNet kernel H ms": (19.87, 19.98),
+    "SD1.5 UNet ms/step": (52.68, 84.83),
+    "SD1.5 UNet profiled kernel ms": (19.96, 20.03),
+    "SwiGLU ViT img/s": (202.41, 203.55),
 }
 
 
@@ -134,9 +141,12 @@ def card_line() -> str:
 
 def print_resources(log: str, lib) -> None:
     """Registers, shared memory and spills of the kernels redesigned for
-    Hopper (A's forward, the W4A8 GEMM of F and G, batched_mha at each
-    padded width, C's row kernel for bf16 and fp32 weights, the attention
-    backward's dQ and dK/dV kernels at each padded width, H's TMA GEMM):
+    Hopper (A's forward, the W4A8 GEMM of F, batched_mha at each padded
+    width, C's row kernel for bf16 and fp32 weights, the attention
+    backward's dQ and dK/dV kernels at each padded width, H's TMA GEMM,
+    D's split row kernel (one query head a kv head) and split mma kernel
+    (D 128) in bf16 and int8, G's decode plan at <= 8 rows, its dynamic
+    shared memory at LLaMA-33B's widths):
     `cuobjdump
     --dump-resource-usage` on the built library (REG per thread, STACK
     bytes, where spills land, static SHARED), ptxas's spill stores/loads
@@ -146,6 +156,21 @@ def print_resources(log: str, lib) -> None:
     some to the consumers."""
     import re
     from emu_tpu_torch.ops import _cuda
+    from emu_tpu_torch.ops import decode_attention as D
+    from emu_tpu_torch.ops import q4_matmul as Q4
+    # the host's copies of the split designs' shared-memory formulas (the
+    # plans size their grids with them) against the library's
+    plan = Q4.decode_plan(5, 6656, 17920, 128, 128, 256)
+    for name, p in (("gate_up", (1, 256, plan["gate_up"]["kmax"], 512)),
+                    ("down", (1, 128, plan["down"]["kmax"], 256))):
+        if lib.emu_wd_smem(*p) != plan[name]["smem"]:
+            raise AssertionError(f"G's {name} shared memory: the plan's "
+                                 f"{plan[name]['smem']} != the library's "
+                                 f"{lib.emu_wd_smem(*p)}")
+    for size in (1, 2):
+        if lib.emu_decode_split_smem(1, 128, size) != D._rows_smem(128, size):
+            raise AssertionError("D's row kernel shared memory: the plan's "
+                                 "formula differs from the library's")
     cuobjdump = Path(_cuda._nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(cuobjdump), "--dump-resource-usage",
                           str(_cuda.library_path())], capture_output=True,
@@ -171,7 +196,15 @@ def print_resources(log: str, lib) -> None:
            **{f"{kind}_kernelILi{dp}E": lib.emu_attention_bwd_smem(
                int(kind == "dkv"), dp) for kind in ("dq", "dkv")
               for dp in (64, 128)},
-           "dense_tma_kernel": lib.emu_fused_dense_smem()}
+           "dense_tma_kernel": lib.emu_fused_dense_smem(),
+           **{f"decode_split_rows_kernelI{t}Li1E":
+              lib.emu_decode_split_smem(1, 128, size)
+              for t, size in (("13__nv_bfloat16", 2), ("a", 1))},
+           **{f"decode_split_mma_kernelI{t}Li128E":
+              lib.emu_decode_split_smem(0, 128, size)
+              for t, size in (("13__nv_bfloat16", 2), ("a", 1))},
+           "w4a8_decode_kernelILi1ELi8ELb1E": plan["gate_up"]["smem"],
+           "w4a8_decode_kernelILi1ELi4ELb0E": plan["down"]["smem"]}
     seen, name = set(), None
     for line in out.splitlines():   # "Function <name>:" then its REG line
         m = re.search(r"Function ([A-Za-z0-9_]+):", line)
@@ -439,6 +472,25 @@ def check_kernels(card: str) -> dict:
         lambda: C.rmsnorm_reference(w32, xr, rr)[:2], 1e-2, 1e-2,
         *norm_cost(640, 5120, True, 4))
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def same_bits(name, fn):
+        """The split merges (D) and the cluster sums (G) add in a fixed
+        order: a second run gives the same bits."""
+        if not torch.equal(fn(), fn()):
+            raise AssertionError(f"{name}: two runs gave different bits")
+
+    def run_d(name, kernel, twin, cost, library=None):
+        """Kernel D at one shape: against its twin, the same bits twice,
+        and the plan decode_plan gave the launch."""
+        run(name, kernel, twin, 1e-2, 1e-2, *cost, library=library)
+        same_bits(name, kernel)
+        before = dict(D.decode_attention.plans)
+        kernel()
+        plan = {k: v - before[k] for k, v in D.decode_attention.plans.items()
+                if v != before[k]}
+        print(f"  {name}: the same bits twice; plan {plan}")
+
     def decode_cost(b, h, hkv, d, lens, qn=1, itemsize=2, extra=True,
                     scales=False):
         """bytes: q, the VALID cache rows of the layer (this run's data),
@@ -473,12 +525,12 @@ def check_kernels(card: str) -> dict:
         kcat = torch.cat([kc[1], kn], 2)
         vcat = torch.cat([vc[1], vn], 2)
         qt, m = qd.transpose(1, 2), sdpa_mask(valid)
-        run(f"decode_attention_b{b}_40x256x128",
-            lambda: D.decode_attention(qd, kc, vc, valid, **dkw),
-            lambda: D.decode_attention_reference(qd, kc, vc, valid, **dkw),
-            1e-2, 1e-2, *decode_cost(b, 40, 40, 128, lens),
-            library=lambda: F.scaled_dot_product_attention(
-                qt, kcat, vcat, attn_mask=m, scale=128 ** -0.5))
+        run_d(f"decode_attention_b{b}_40x256x128",
+              lambda: D.decode_attention(qd, kc, vc, valid, **dkw),
+              lambda: D.decode_attention_reference(qd, kc, vc, valid, **dkw),
+              decode_cost(b, 40, 40, 128, lens),
+              library=lambda: F.scaled_dot_product_attention(
+                  qt, kcat, vcat, attn_mask=m, scale=128 ** -0.5))
 
     # --- the Emu2-Chat int4 path's shapes ---------------------------------
     # A: EVA-4B self-attention, one 448-px image, q/v biases, D = 112
@@ -508,12 +560,12 @@ def check_kernels(card: str) -> dict:
     dkw = dict(scale=128 ** -0.5, layer=1, k_new=kn, v_new=vn)
     kcat, vcat = torch.cat([kc[1], kn], 2), torch.cat([vc[1], vn], 2)
     qt, m = qd.transpose(1, 2), sdpa_mask(valid)
-    run("decode_attention_b5_52x384x128",
-        lambda: D.decode_attention(qd, kc, vc, valid, **dkw),
-        lambda: D.decode_attention_reference(qd, kc, vc, valid, **dkw),
-        1e-2, 1e-2, *decode_cost(5, 52, 52, 128, lens),
-        library=lambda: F.scaled_dot_product_attention(
-            qt, kcat, vcat, attn_mask=m, scale=128 ** -0.5))
+    run_d("decode_attention_b5_52x384x128",
+          lambda: D.decode_attention(qd, kc, vc, valid, **dkw),
+          lambda: D.decode_attention_reference(qd, kc, vc, valid, **dkw),
+          decode_cost(5, 52, 52, 128, lens),
+          library=lambda: F.scaled_dot_product_attention(
+              qt, kcat, vcat, attn_mask=m, scale=128 ** -0.5))
     del kc, vc, kcat, vcat
 
     # --- kernel D's serving forms (continuous engine, speculative verify,
@@ -544,22 +596,29 @@ def check_kernels(card: str) -> dict:
     qd = randn(8, 1, H, 128)
     kn, vn = chunk_extra(8, 1)
     dkw = dict(scale=128 ** -0.5, layer=59, k_new=kn, v_new=vn)
-    run("decode_int8_b8_52x1024x128_l59",
-        lambda: D.decode_attention(qd, kq, vq, valid8, ks, vs, **dkw),
-        lambda: D.decode_attention_reference(qd, kq, vq, valid8, ks, vs,
-                                             **dkw),
-        1e-2, 1e-2, *decode_cost(8, H, H, 128, lens8, itemsize=1,
-                                 scales=True))
+    run_d("decode_int8_b8_52x1024x128_l59",
+          lambda: D.decode_attention(qd, kq, vq, valid8, ks, vs, **dkw),
+          lambda: D.decode_attention_reference(qd, kq, vq, valid8, ks, vs,
+                                               **dkw),
+          decode_cost(8, H, H, 128, lens8, itemsize=1, scales=True))
+    # ... and at the continuous engine's own occupancy: 8 rows of 16-264
+    # tokens in its 1024-slot cache
+    lens_e = torch.tensor([16, 40, 64, 100, 150, 200, 240, 264], device=dev)
+    valid_e = torch.arange(S, device=dev)[None, :] < lens_e[:, None]
+    run_d("decode_int8_engine_b8_52x1024x128",
+          lambda: D.decode_attention(qd, kq, vq, valid_e, ks, vs, **dkw),
+          lambda: D.decode_attention_reference(qd, kq, vq, valid_e, ks, vs,
+                                               **dkw),
+          decode_cost(8, H, H, 128, lens_e, itemsize=1, scales=True))
     # D-chunk int8: a 32-token mixed step at 8 rows, same cache
     qd = randn(8, 32, H, 128)
     kn, vn = chunk_extra(8, 32)
     dkw = dict(scale=128 ** -0.5, layer=59, k_new=kn, v_new=vn)
-    run("decode_chunk_int8_b8_q32_52x1024x128",
-        lambda: D.decode_attention(qd, kq, vq, valid8, ks, vs, **dkw),
-        lambda: D.decode_attention_reference(qd, kq, vq, valid8, ks, vs,
-                                             **dkw),
-        1e-2, 1e-2, *decode_cost(8, H, H, 128, lens8, qn=32, itemsize=1,
-                                 scales=True))
+    run_d("decode_chunk_int8_b8_q32_52x1024x128",
+          lambda: D.decode_attention(qd, kq, vq, valid8, ks, vs, **dkw),
+          lambda: D.decode_attention_reference(qd, kq, vq, valid8, ks, vs,
+                                               **dkw),
+          decode_cost(8, H, H, 128, lens8, qn=32, itemsize=1, scales=True))
     del kq, vq, ks, vs
     # D-chunk bf16: a speculative verify (qn 5, B 1) and a mixed step (32)
     kc, vc = randn(2, 8, H, S, 128), randn(2, 8, H, S, 128)
@@ -572,12 +631,12 @@ def check_kernels(card: str) -> dict:
         kcat = torch.cat([kcb[1], kn], 2)
         vcat = torch.cat([vcb[1], vn], 2)
         qt, m = qd.transpose(1, 2), sdpa_mask(vb_, qn)
-        run(f"decode_chunk_bf16_b{b}_q{qn}_52x1024x128",
-            lambda: D.decode_attention(qd, kcb, vcb, vb_, **dkw),
-            lambda: D.decode_attention_reference(qd, kcb, vcb, vb_, **dkw),
-            1e-2, 1e-2, *decode_cost(b, H, H, 128, lens8[:b], qn=qn),
-            library=lambda: F.scaled_dot_product_attention(
-                qt, kcat, vcat, attn_mask=m, scale=128 ** -0.5))
+        run_d(f"decode_chunk_bf16_b{b}_q{qn}_52x1024x128",
+              lambda: D.decode_attention(qd, kcb, vcb, vb_, **dkw),
+              lambda: D.decode_attention_reference(qd, kcb, vcb, vb_, **dkw),
+              decode_cost(b, H, H, 128, lens8[:b], qn=qn),
+              library=lambda: F.scaled_dot_product_attention(
+                  qt, kcat, vcat, attn_mask=m, scale=128 ** -0.5))
     del kc, vc, kcb, vcb, kcat, vcat
     # D-paged: 8 rows of 64 pages of 16 through a shuffled table, bf16 and
     # int8 (scales already gathered to the logical view)
@@ -667,7 +726,7 @@ def check_kernels(card: str) -> dict:
     gu = Q.quantize_kernel_int4(randn(6656, 35840, std=0.02))
     dn = Q.quantize_kernel_int4(randn(17920, 6656, std=0.02))
     gargs = (gu["kernel_q4"], gu["scale4"], dn["kernel_q4"], dn["scale4"])
-    for m in (1, 5):
+    for m in (1, 5, 8):   # 8: the continuous engine's slots
         xm, wr = randn(m, 6656), 1 + randn(6656, std=0.1)
         nb = (4 * m * 6656 + 2 * 6656 + 6656 * 35840 / 2
               + 4 * 52 * 35840 + 17920 * 6656 / 2 + 4 * 140 * 6656)
@@ -676,6 +735,15 @@ def check_kernels(card: str) -> dict:
             lambda: Q4.fused_swiglu_q4_reference(xm, wr, *gargs),
             2e-2, 2e-2, nb, 2 * m * 6656 * 35840 + 2 * m * 17920 * 6656,
             "int8")
+        same_bits(f"fused_swiglu_q4 at {m} rows",
+                  lambda: Q4.fused_swiglu_q4(xm, wr, *gargs))
+        plan = Q4.decode_plan(m, 6656, 17920, 128, 128, 256, sms)
+        shown = ", ".join(
+            f"{k}: {p['blocks'] // p['ks']} clusters of {p['ks']} "
+            f"({p['blocks_per_sm']} blocks an SM)"
+            for k, p in ((k, plan[k]) for k in ("gate_up", "down")))
+        print(f"  fused_swiglu_q4 at {m} rows: the same bits twice; plan "
+              f"{shown}")
     del gu, dn, gargs
     torch.cuda.empty_cache()
     check_training_kernels(run, randn, attn_cost, results)
@@ -2113,6 +2181,7 @@ def profile_engine_decode(card: str, chat) -> None:
                 e.time_range.elapsed_us() / 1e3 / 8
     busy = sum(by_name.values())
     E2E["engine decode step alone ms"] = wall
+    E2E["engine decode step kernel ms"] = busy
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print(f"  engine decode alone (8 slots, int8 KV, max_len 1024): "
           f"{wall:.2f} ms/step wall, kernels {busy:.2f} ms/step (busy "
@@ -2307,7 +2376,8 @@ KERNELS = [  # name, source, replaces, wrapper, checks (first one timed)
       "decode_attention_b5_52x384x128"]),
     ("decode_attention_int8", "emu_tpu_torch/csrc/decode_attention.cu",
      "emu_tpu/ops/decode_attention.py:166", "D.decode_attention:int8",
-     ["decode_int8_b8_52x1024x128_l59"]),
+     ["decode_int8_b8_52x1024x128_l59",
+      "decode_int8_engine_b8_52x1024x128"]),
     ("decode_attention_chunk", "emu_tpu_torch/csrc/decode_attention.cu",
      "emu_tpu/ops/decode_attention.py:166", "D.decode_attention:chunk_bf16",
      ["decode_chunk_bf16_b8_q32_52x1024x128",
@@ -2335,7 +2405,8 @@ KERNELS = [  # name, source, replaces, wrapper, checks (first one timed)
       "matmul_q4_gate_up_1024x6656x35840"]),
     ("fused_swiglu_q4", "emu_tpu_torch/csrc/q4_matmul.cu",
      "emu_tpu/ops/q4_matmul.py:295", "Q4.fused_swiglu_q4",
-     ["fused_swiglu_q4_5x6656x17920", "fused_swiglu_q4_1x6656x17920"]),
+     ["fused_swiglu_q4_5x6656x17920", "fused_swiglu_q4_1x6656x17920",
+      "fused_swiglu_q4_8x6656x17920"]),
     ("fused_mlp_swiglu", "emu_tpu_torch/csrc/fused_mlp.cu",
      "emu_tpu/ops/fused_mlp.py:357", "B.fused_mlp:swiglu",
      [f"fused_mlp_swiglu_{mode}_{m}x1024x2730" for mode in ("pre", "post")

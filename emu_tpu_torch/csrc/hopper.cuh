@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the redesigned kernels (A and its
-// backward, batched_mha, F and G, H's TMA plan): mbarriers, TMA tile
-// loads, cp.async into an mbarrier-tracked ring, wgmma shared-memory
+// backward, batched_mha, D, F and G, H's TMA plan): mbarriers, TMA tile
+// and bulk loads, cp.async into an mbarrier-tracked ring, wgmma shared-memory
 // descriptors and the warpgroup fences, and host-side tensor-map encoding.
 //
 // The tensor map needs the driver's cuTensorMapEncodeTiled. It is reached
@@ -99,6 +99,27 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_by
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
+}
+
+// One contiguous run of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) global -> shared by the bulk-copy engine; completion counts its
+// bytes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 
 // One arrival on `bar` once every cp.async this thread issued has landed

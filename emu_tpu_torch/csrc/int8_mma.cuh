@@ -13,7 +13,7 @@
 //   accumulator with their scales, and a small epilogue (scales, bias,
 //   GELU, residual);
 // - GemmArgs, gemm_store and split_epilogue_kernel, which the W4A8 GEMM of
-//   kernels F and G (w4a8_gemm.cuh) shares.
+//   kernel F (w4a8_gemm.cuh) shares.
 //
 // The W8A8 GEMM is a plain first version: one 128-deep K tile at a time in
 // shared memory (no pipelining), weights gathered one byte per thread

@@ -15,24 +15,24 @@
 //
 // G replaces emu_tpu/ops/q4_matmul.py:fused_swiglu_q4, the decode MLP
 // x + down(silu(gate(rms(x))) * up(rms(x))) with the fused gate|up layout:
-// RMSNorm (HF rounding) + per-row quantization, the gate|up W4A8 product
-// into fp32, silu(g) * u re-quantized per row WITHIN each hidden block of
-// bf columns (hidden units j and j + F/2 sit in the two nibble planes of
-// one packed down row), and the down W4A8 product with those per-(row,
-// block) scales plus the residual. The TPU kernel walks the hidden blocks
-// in sequence on one core; on Hopper one block per hidden block would use
-// 35 of 132 SMs, so the four steps are four launches that each spread
-// over the whole card, and the [rows, 2F] fp32 gate|up activations (a few
-// hundred KB at decode) pass through device memory.
+// RMSNorm (HF rounding) + per-row quantization (rms_quant_kernel), then
+// its own decode plan (w4a8_decode.cuh): the gate|up product with silu(g) *
+// u re-quantized per row WITHIN each hidden block of bf columns (hidden
+// units j and j + F/2 sit in the two nibble planes of one packed down row)
+// in its epilogue, and the down product with those per-(row, block) scales
+// plus the residual. The TPU kernel walks the hidden blocks in sequence on
+// one core; here a thread-block cluster owns each hidden block (and each
+// 256 columns of the down product), its blocks splitting K.
 //
 // What bounds them on an H100: at decode (1-32 rows) the weight bytes
 // (int4: half a byte per weight; 16.5 GB for LLaMA-33B) against 3.35 TB/s;
-// the ring keeps 64 KB of weights in flight per SM and K is split until
-// about two waves of blocks stream them. At prefill (a few hundred rows)
+// F's ring keeps 64 KB of weights in flight per SM and K is split until
+// about two waves of blocks stream them; G's plan is w4a8_decode.cuh's. At prefill (a few hundred rows)
 // the int8 tensor-core rate (1979 TOP/s): 128 x 128 tiles, two consumer
 // warpgroups issuing wgmma m64n128k32 while the transform warpgroup
 // unpacks the next tile.
 
+#include "w4a8_decode.cuh"
 #include "w4a8_gemm.cuh"
 
 // K splits of a W4A8 product at M rows: the caller's workspace for F (and
@@ -72,59 +72,66 @@ extern "C" int emu_matmul_q4_fwd(const void* x, const void* packed, const void* 
   return static_cast<int>(launch_w4a8(a, s));
 }
 
-// Scratch the caller allocates: xq [M, D] int8, sx [M] fp32, gu [M, 2F]
-// fp32, hq [M, F] int8, hs [M, F / bf] fp32, and ws, fp32, as large as
-// the larger split workspace of the two products (emu_w4a8_splits).
+// Scratch the caller allocates: xq [M, D] int8, sx [M] fp32, hq [M, F]
+// int8, hs [M, F / bf] fp32. The plan (decode_plan in ops/q4_matmul.py):
+// the gate|up product's K splits ks_gu (the cluster size, 1, 2, 4 or 8) and
+// the packed rows of its longest split kmax_gu; the same for down.
 extern "C" int emu_fused_swiglu_q4_fwd(const void* x, const void* rms, const void* gu_packed,
                                        const void* gu_scale, const void* dn_packed,
-                                       const void* dn_scale, void* xq, void* sx, void* gu,
-                                       void* hq, void* hs, void* ws, void* out, int M, int D,
-                                       int F, int gs_d, int gs_f, int bf, float eps,
-                                       int residual, void* stream) {
-  if (D % (2 * KT) || F % (2 * KT) || gs_d % KT || gs_f % KT || (D / 2) % gs_d ||
-      bf % gs_f || (F / 2) % bf)
+                                       const void* dn_scale, void* xq, void* sx, void* hq,
+                                       void* hs, void* out, int M, int D, int F, int gs_d,
+                                       int gs_f, int bf, float eps, int residual, int ks_gu,
+                                       int kmax_gu, int ks_dn, int kmax_dn, void* stream) {
+  if (M < 1 || M > 32 || D % 256 || D > 8 * RQ_VEC * RQ_THREADS || F % 256 ||
+      gs_d % WD_FOLD || gs_f % WD_FOLD ||
+      (D / 2) % gs_d || bf % gs_f || (F / 2) % bf || bf > 1024 || ks_gu < 1 || ks_gu > 8 ||
+      ks_dn < 1 || ks_dn > 8)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  quant_rows_kernel<<<M, 256, 0, s>>>(xb, D, ROW_RMSNORM,
-                                      static_cast<const __nv_bfloat16*>(rms), nullptr, eps,
-                                      static_cast<int8_t*>(xq), static_cast<float*>(sx));
+  rms_quant_kernel<<<M, RQ_THREADS, 0, s>>>(xb, static_cast<const __nv_bfloat16*>(rms), D, eps,
+                                            static_cast<int8_t*>(xq), static_cast<float*>(sx));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  GemmArgs a = gemm_args();  // gate|up: [M, D] x [D/2, 2F] -> fp32 [M, 2F]
+  DecodeArgs a = {};  // gate|up: [M, D] x [D/2, 2F] -> silu(g) * u as int8 blocks
   a.a = static_cast<const int8_t*>(xq);
   a.w = static_cast<const int8_t*>(gu_packed);
   a.w_scale = static_cast<const float*>(gu_scale);
   a.row_scale = static_cast<const float*>(sx);
-  a.out_f32 = static_cast<float*>(gu);
-  a.ws = static_cast<float*>(ws);
+  a.hq = static_cast<int8_t*>(hq);
+  a.hs = static_cast<float*>(hs);
   a.M = M;
   a.N = 2 * F;
   a.K = D;
   a.gs = gs_d;
-  err = launch_w4a8(a, s);
+  a.F = F;
+  a.bf = bf;
+  a.ks = ks_gu;
+  a.kmax = kmax_gu;
+  err = launch_wd_rows<8, true>(a, F / bf, s);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  block_requant_kernel<<<dim3(M, F / bf), 256, 0, s>>>(
-      static_cast<const float*>(gu), 2LL * F, F, bf, 1, static_cast<int8_t*>(hq),
-      static_cast<float*>(hs));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  GemmArgs b = gemm_args();  // down: [M, F] x [F/2, D] -> bf16 [M, D] (+ x)
+  DecodeArgs b = {};  // down: [M, F] x [F/2, D] -> bf16 [M, D] (+ x)
   b.a = static_cast<const int8_t*>(hq);
   b.w = static_cast<const int8_t*>(dn_packed);
   b.w_scale = static_cast<const float*>(dn_scale);
   b.blk_scale = static_cast<const float*>(hs);
-  b.blk = bf;
-  b.nblk = F / 2 / bf;
   b.residual = residual ? xb : nullptr;
-  b.out_bf16 = static_cast<__nv_bfloat16*>(out);
-  b.ws = static_cast<float*>(ws);
+  b.out = static_cast<__nv_bfloat16*>(out);
   b.M = M;
   b.N = D;
   b.K = F;
   b.gs = gs_f;
-  return static_cast<int>(launch_w4a8(b, s));
+  b.bf = bf;
+  b.nblk = F / 2 / bf;
+  b.ks = ks_dn;
+  b.kmax = kmax_dn;
+  return static_cast<int>(launch_wd_rows<4, false>(b, D / 256, s));
+}
+
+// Dynamic shared memory of a decode-plan block (ops/q4_matmul.py checks its
+// own copy of the formula against it on the card).
+extern "C" int emu_wd_smem(int nt, int threads, int kmax, int cols) {
+  return wd_smem(nt, threads, kmax, cols);
 }

@@ -1,4 +1,4 @@
-// The W4A8 GEMM of kernels F and G (q4_matmul.cu), built for Hopper:
+// The W4A8 GEMM of kernel F (q4_matmul.cu), built for Hopper:
 // int8 activations [M, K] times fold-packed int4 weights [K/2, N] on the
 // tensor cores through wgmma (s8 x s8 -> s32), fed by an asynchronous ring.
 //
@@ -24,8 +24,10 @@
 //   ahead through TMA and issue wgmma m64n64k32 over four units a tile
 //   (plane x 64-column half) into two int32 accumulators in turn, folding
 //   each unit's exact 128-row integer dot into the fp32 accumulator, with
-//   its per-(group, column) scale (and the per-(row, block) activation
-//   scale of G's down product), while the next unit runs.
+//   its per-(group, column) scale (and a per-(row, block) activation scale
+//   when blk_scale is set: G's down product used it before G took its own
+//   plan, w4a8_decode.cuh; the branch stays because F's code without it
+//   rounds differently), while the next unit runs.
 //
 // The transform writes output column c*16 + m of the tile to wgmma row
 // (c*16) + (m ^ c): the 8 threads that store at once then hit 8 distinct
@@ -269,7 +271,7 @@ __global__ void __launch_bounds__(W4Plan<CW>::THREADS, 1)
       const float* scs = reinterpret_cast<const float*>(us + 2 * W4_BN * W4_KT);
       mbar_wait(&xf[s], (i / XSTAGES) & 1);
       mbar_wait(&ufull[u], (i / W4_USTAGES) & 1);
-      // G's down product: the activation block's per-row scales, both planes
+      // per-(row, block) activation scales (blk_scale), both planes
       float rs[2][2] = {{1.f, 1.f}, {1.f, 1.f}};
       if (p.blk_scale != nullptr) {
         const int b = k0 / p.blk;

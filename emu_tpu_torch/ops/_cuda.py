@@ -46,13 +46,31 @@ SIGNATURES = {
     "emu_w4a8_smem": [_I],
     "emu_attention_smem": [_I],
     "emu_matmul_q4_fwd": [_P] * 8 + [_I] * 4 + [_P],
-    "emu_fused_swiglu_q4_fwd": [_P] * 13 + [_I] * 6 + [_F, _I, _P],
+    "emu_fused_swiglu_q4_fwd": [_P] * 11 + [_I] * 6 + [_F] + [_I] * 5
+                               + [_P],
+    "emu_wd_smem": [_I] * 4,
     "emu_add_rmsnorm_fwd": [_P] * 6 + [_I, _I, _I, _F, _P],
     "emu_add_rmsnorm_bwd": [_P] * 8 + [_I] * 3 + [_P],
     "emu_decode_attention_fwd": [_P] + [_L] * 3 + [_P] * 6 + [_L] * 3 + [_P]
                                 + [_L] * 3 + [_P] + [_I] * 3 + [_P]
-                                + [_I] * 6 + [_L, _F, _I, _P],
+                                + [_I] * 6 + [_L, _F, _I] + [_I] * 3
+                                + [_P] * 4,
+    "emu_decode_split_smem": [_I] * 3,
 }
+
+
+# An H100's figures the decode plans size their grids with: SMs, and the
+# shared memory an SM gives its blocks and one block may take.
+H100_SMS = 132
+SMEM_PER_SM = 233472
+SMEM_PER_BLOCK = 232448
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(device) -> int:
+    """The SM count of a card (the plans' `sms`)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def on_cpu(t, name: str) -> bool:

@@ -25,10 +25,18 @@ raises. Each counts its launches (`launches`) and, per form, in `forms`.
 The twins follow the TPU kernel's arithmetic: the cache probabilities
 (times the v scales) are rounded to the compute dtype before P·V, the extra
 columns' probabilities and values stay fp32.
+
+The kernel splits each (batch row, kv head) plane's key axis over blocks;
+`decode_plan`, a function of the shape alone, picks the split and the grid
+(at most one wave of co-resident blocks). The page pool's Sq = 1 forms take
+the same row kernel through the page table (so a paged lane matches the
+dense one bit for bit); its chunk forms, and rows that are not whole
+16-byte units, keep the first designs.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -37,6 +45,87 @@ from emu_tpu_torch.ops import _cuda
 
 _NEG_INF = -1e30
 MAX_CHUNK = 32       # queries per row the kernel takes with k_new/v_new
+
+# The split designs (csrc/decode_attention.cu): cache positions per chunk of
+# the row kernel (Sq = 1, rep <= 8) and of the mma kernel (the chunk form),
+# the most chunks one split takes, the row kernel's ring depth by item size.
+ROW_CHUNK, MMA_CHUNK = 32, 64
+MAX_SPLIT_CHUNKS = 32
+ROW_STAGES = {1: 6, 2: 4}
+ITEM_COST = 4        # a work item's fixed cost, in chunks (decode_plan)
+
+
+def _rows_smem(d: int, itemsize: int) -> int:
+    """Dynamic shared memory of a row-kernel block (`rows_smem` in the
+    source): the ring of K, V and scale chunks (ROW_STAGES deep, by item
+    size), the split's valid bytes."""
+    return (ROW_STAGES[itemsize] * (2 * ROW_CHUNK * d * itemsize
+                                    + 2 * ROW_CHUNK * 4)
+            + MAX_SPLIT_CHUNKS * ROW_CHUNK)
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(b: int, hkv: int, rep: int, qn: int, s: int, d: int,
+                itemsize: int, sms: int = _cuda.H100_SMS,
+                aligned: bool = True) -> dict:
+    """How kernel D runs over a dense cache of B rows, Hkv kv heads of
+    rep query heads, qn queries, S positions of width D (itemsize 2: bf16,
+    1: int8): a function of the shape (and of the operands' 16-byte
+    alignment) alone.
+
+    - kernel: "rows" (Sq = 1, rep <= 8: the split row kernel), "mma" (the
+      chunk form on the tensor cores), or "first" (rows that are not whole
+      16-byte units, int8 scales of an S that is not a multiple of 4, or
+      unaligned operands: the first designs, one block per plane);
+    - chunk: cache positions per chunk; splits: how many splits cut each
+      plane's key axis, chunks_per_split chunks each (the last may hold
+      fewer, none is empty, at most MAX_SPLIT_CHUNKS);
+    - items = B * Hkv * splits work items, grid = min(items, blocks_per_sm
+      * sms): at most one wave of co-resident blocks, each walking items in
+      a fixed stride.
+
+    The split count minimises rounds x (chunks per split + ITEM_COST): the
+    rounds of items each block walks, and each item's chunks plus its fixed
+    cost in chunks (the list, the ring's fill, the merge: about 5 us on an
+    H100 against about 1.3 us a chunk with every block streaming)."""
+    rows = qn == 1 and rep <= 8
+    if (not aligned or (rows and ((d * itemsize) % 16
+                                  or (itemsize == 1 and s % 4)))):
+        return {"kernel": "first", "chunk": 0, "splits": 1,
+                "chunks_per_split": 0, "items": b * hkv, "grid": b * hkv,
+                "blocks_per_sm": 0}
+    cs = ROW_CHUNK if rows else MMA_CHUNK
+    per_sm = (min(4, _cuda.SMEM_PER_SM // (_rows_smem(d, itemsize) + 1024))
+              if rows else 1)
+    cap = sms * per_sm
+    nch = -(-s // cs)
+    pairs = b * hkv
+    best = None
+    for n in range(-(-nch // MAX_SPLIT_CHUNKS), nch + 1):
+        cps = -(-nch // n)
+        n = -(-nch // cps)           # no empty split
+        items = pairs * n
+        cost = -(-items // cap) * (cps + ITEM_COST)
+        if best is None or cost < best[0]:
+            best = (cost, n, cps)
+    _, n, cps = best
+    return {"kernel": "rows" if rows else "mma", "chunk": cs, "splits": n,
+            "chunks_per_split": cps, "items": pairs * n,
+            "grid": min(pairs * n, cap), "blocks_per_sm": per_sm}
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(device, n: int):
+    """Per-plane tickets of the split merge on one card: int32 zeros the
+    kernel leaves at zero after every call (one buffer per card, grown when
+    a call needs more planes)."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
 
 
 def _group_q(q, hkv: int):
@@ -143,9 +232,9 @@ def kernel_fits(q, k, k_new=None, quant: bool = False) -> bool:
 
 
 def _launch(q, k, v, kv_valid, k_scale, v_scale, scale, layer, k_new, v_new,
-            table, name):
-    """Checks and the one C entry point for every form; returns
-    (out, form name)."""
+            table, name, plans):
+    """Checks and the one C entry point for every form; counts the kernel
+    the plan gives in `plans`; returns (out, form name)."""
     n_layers = k.shape[0]
     b, qn, h, d = q.shape
     hkv = k.shape[2]
@@ -203,6 +292,23 @@ def _launch(q, k, v, kv_valid, k_scale, v_scale, scale, layer, k_new, v_new,
     vn_s = (0, 0, 0) if v_new is None else extra(v_new)
     valid = kv_valid.to(device=q.device, dtype=torch.bool).contiguous()
     out = torch.empty(b, qn, h, d, device=q.device, dtype=bf)
+    nsplit, cps, grid, ws_o, ws_ml, cnt = 0, 0, 0, None, None, None
+    aligned = all(t.data_ptr() % 16 == 0 for t in (k, v, k_scale, v_scale)
+                  if t is not None)
+    plan = decode_plan(b, hkv, rep, qn, s, d, k.element_size(),
+                       _cuda.sm_count(q.device), aligned)
+    kernel = plan["kernel"]
+    if table is not None and kernel == "mma":
+        kernel = "first"      # the page pool's chunk forms keep it
+    if kernel != "first":
+        nsplit, cps, grid = (plan["splits"], plan["chunks_per_split"],
+                             plan["grid"])
+        if nsplit > 1:
+            rows = b * hkv * nsplit * rep * qn
+            ws_o = torch.empty(rows * d, device=q.device)
+            ws_ml = torch.empty(rows * 2, device=q.device)
+            cnt = _tickets(q.device, b * hkv)
+    plans[kernel] += 1
     with _cuda.device_of(q):
         status = _cuda.library().emu_decode_attention_fwd(
             q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
@@ -210,10 +316,12 @@ def _launch(q, k, v, kv_valid, k_scale, v_scale, scale, layer, k_new, v_new,
             valid.data_ptr(), _cuda.ptr(k_new), *kn_s, _cuda.ptr(v_new),
             *vn_s, _cuda.ptr(table), n_tab, n_pages, page, out.data_ptr(),
             b, h, hkv, qn, s, d, int(layer), float(scale), int(quant),
-            _cuda.stream(q))
+            nsplit, cps, grid, _cuda.ptr(ws_o), _cuda.ptr(ws_ml),
+            _cuda.ptr(cnt), _cuda.stream(q))
     _cuda.check(status, name)
     form = ("chunk_" if qn > 1 else "") + ("int8" if quant else "bf16")
     return out, form
+
 
 
 def decode_attention(q, k, v, kv_valid, k_scale=None, v_scale=None, *,
@@ -236,7 +344,8 @@ def decode_attention(q, k, v, kv_valid, k_scale=None, v_scale=None, *,
         if k_scale is not None:
             k_scale, v_scale = k_scale[None], v_scale[None]
     out, form = _launch(q, k, v, kv_valid, k_scale, v_scale, scale, layer,
-                        k_new, v_new, None, "decode_attention")
+                        k_new, v_new, None, "decode_attention",
+                        decode_attention.plans)
     decode_attention.launches += 1
     decode_attention.forms[form] += 1
     return out
@@ -245,6 +354,8 @@ def decode_attention(q, k, v, kv_valid, k_scale=None, v_scale=None, *,
 decode_attention.launches = 0
 decode_attention.forms = {"bf16": 0, "int8": 0, "chunk_bf16": 0,
                           "chunk_int8": 0}
+# launches on the dense cache by `decode_plan`'s kernel
+decode_attention.plans = {"rows": 0, "mma": 0, "first": 0}
 
 
 def paged_decode_attention(q, k, v, page_table, kv_valid, *, scale: float,
@@ -268,7 +379,8 @@ def paged_decode_attention(q, k, v, page_table, kv_valid, *, scale: float,
             k_scale, v_scale = k_scale[None], v_scale[None]
     table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
     out, form = _launch(q, k, v, kv_valid, k_scale, v_scale, scale, layer,
-                        k_new, v_new, table, "paged_decode_attention")
+                        k_new, v_new, table, "paged_decode_attention",
+                        paged_decode_attention.plans)
     paged_decode_attention.launches += 1
     paged_decode_attention.forms[form] += 1
     return out
@@ -277,3 +389,6 @@ def paged_decode_attention(q, k, v, page_table, kv_valid, *, scale: float,
 paged_decode_attention.launches = 0
 paged_decode_attention.forms = {"bf16": 0, "int8": 0, "chunk_bf16": 0,
                                 "chunk_int8": 0}
+# the Sq = 1 forms take the split row kernel through the page table; the
+# chunk forms keep the first design
+paged_decode_attention.plans = {"rows": 0, "mma": 0, "first": 0}

@@ -19,6 +19,8 @@ fp32 products carry it exactly.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from emu_tpu_torch.ops import _cuda
@@ -178,6 +180,78 @@ def fused_swiglu_q4_reference(x, rms_scale, gu_packed, gu_scale, dn_packed,
     return y.to(x.dtype).reshape(*lead, d)
 
 
+# G's decode plan (csrc/w4a8_decode.cuh): weight steps in flight per thread,
+# threads of a gate|up and of a down block, down's columns per block.
+WD_STAGES = 4
+WD_GU_THREADS, WD_DN_THREADS, WD_DN_COLS = 256, 128, 256
+
+
+def _wd_smem(nt: int, threads: int, kmax: int, cols: int) -> int:
+    """Dynamic shared memory of a decode-plan block (`wd_smem`)."""
+    return (2 * 8 * nt * (kmax + 16) + WD_STAGES * (threads // 32) * 2048
+            + 8 * nt * cols * 4 + 128)
+
+
+def k_splits(kp: int, gs: int, ks: int) -> list:
+    """The packed-row ranges [r0, r1) of ks K splits of kp packed rows in
+    whole scale-group pairs of gs rows (the kernel's rank formula)."""
+    pairs = kp // gs
+    return [(r * pairs // ks * gs, (r + 1) * pairs // ks * gs)
+            for r in range(ks)]
+
+
+@functools.lru_cache(maxsize=64)
+def decode_plan(m: int, d: int, f: int, gs_d: int, gs_f: int, bf: int,
+                sms: int = _cuda.H100_SMS) -> dict:
+    """Kernel G's decode plan at m rows (<= 32), a function of the shape:
+    for each product, the K splits (a thread-block cluster of ks = 1, 2, 4
+    or 8 blocks, in whole scale-group pairs) and the blocks.
+
+    - gate_up: one cluster per hidden block of bf units (F / bf of them),
+      owning the block's gate and up columns, 256 threads a block;
+    - down: one cluster per 256 output columns (D / 256), 128 threads.
+
+    Each takes the largest ks whose blocks all fit in one wave of
+    co-resident blocks (registers and shared memory per SM), so no block
+    waits for a second wave; when no ks fits one wave, the smallest that
+    fits a block's shared memory. Returns per product: ks, kmax (packed
+    rows of the longest split), splits ([r0, r1) packed-row ranges),
+    blocks, blocks_per_sm, smem (dynamic bytes a block); and nt (n8
+    tiles of activation rows) and hidden_blocks ([(plane, j0, j1)] hidden
+    units per gate|up cluster)."""
+    nt = 1 if m <= 8 else 2 if m <= 16 else 4
+    plan = {"nt": nt, "hidden_blocks": [
+        (j0 // (f // 2), j0, j0 + bf) for j0 in range(0, f, bf)]}
+    for name, kp, gs, tiles, threads, cols, regs in (
+            ("gate_up", d // 2, gs_d, f // bf, WD_GU_THREADS, 2 * bf,
+             2 if nt == 1 else 1),
+            ("down", f // 2, gs_f, d // WD_DN_COLS, WD_DN_THREADS,
+             WD_DN_COLS, 3 if nt == 1 else 1)):
+        pairs = kp // gs
+        best = None
+        for ks in (1, 2, 4, 8):
+            if ks > pairs:
+                break
+            kmax = -(-pairs // ks) * gs
+            smem = _wd_smem(nt, threads, kmax, cols)
+            if smem > _cuda.SMEM_PER_BLOCK:
+                continue
+            per_sm = min(regs, _cuda.SMEM_PER_SM // (smem + 1024))
+            one_wave = tiles * ks <= sms * per_sm
+            if best is None or one_wave:
+                best = (ks, kmax, per_sm, smem)
+            if not one_wave:
+                break
+        if best is None:
+            raise ValueError(f"fused_swiglu_q4: no decode plan for {name} "
+                             f"(K/2 {kp}, groups of {gs}, {m} rows)")
+        ks, kmax, per_sm, smem = best
+        plan[name] = {"ks": ks, "kmax": kmax, "splits": k_splits(kp, gs, ks),
+                      "blocks": tiles * ks, "blocks_per_sm": per_sm,
+                      "smem": smem}
+    return plan
+
+
 def fused_swiglu_q4(x, rms_scale, gu_packed, gu_scale, dn_packed, dn_scale,
                     *, eps: float = 1e-6, residual: bool = True,
                     bf: int = 384) -> torch.Tensor:
@@ -208,26 +282,33 @@ def fused_swiglu_q4(x, rms_scale, gu_packed, gu_scale, dn_packed, dn_scale,
     xf = x.reshape(-1, d).contiguous()
     m = xf.shape[0]
     _cuda.require(m <= 32, f"fused_swiglu_q4: at most 32 rows (got {m})")
+    _cuda.require(bf <= 1024 and d <= 16384, f"fused_swiglu_q4: hidden "
+                  f"block {bf} > 1024 or D {d} > 16384")
     dev = x.device
+    plan = decode_plan(m, d, f, gs_d, gs_f, bf, _cuda.sm_count(dev))
     rms = rms_scale.to(torch.bfloat16).contiguous()
+    # the row kernel reads x and the norm weight 16 bytes at a time
+    if xf.data_ptr() % 16:
+        xf = xf.clone()
+    if rms.data_ptr() % 16:
+        rms = rms.clone()
     gu_packed, dn_packed = gu_packed.contiguous(), dn_packed.contiguous()
     gu_scale = gu_scale.float().contiguous()
     dn_scale = dn_scale.float().contiguous()
     xq = torch.empty(m, d, device=dev, dtype=torch.int8)
     sx = torch.empty(m, device=dev)
-    gu = torch.empty(m, 2 * f, device=dev)
     hq = torch.empty(m, f, device=dev, dtype=torch.int8)
     hs = torch.empty(m, f // bf, device=dev)
     out = torch.empty(m, d, device=dev, dtype=torch.bfloat16)
+    gp, dp = plan["gate_up"], plan["down"]
     with _cuda.device_of(x):
-        lib = _cuda.library()
-        ws = _split_workspace(lib, dev, (m, 2 * f, d, gs_d), (m, d, f, gs_f))
-        status = lib.emu_fused_swiglu_q4_fwd(
+        status = _cuda.library().emu_fused_swiglu_q4_fwd(
             xf.data_ptr(), rms.data_ptr(), gu_packed.data_ptr(),
             gu_scale.data_ptr(), dn_packed.data_ptr(), dn_scale.data_ptr(),
-            xq.data_ptr(), sx.data_ptr(), gu.data_ptr(), hq.data_ptr(),
-            hs.data_ptr(), _cuda.ptr(ws), out.data_ptr(), m, d, f, gs_d,
-            gs_f, bf, float(eps), int(residual), _cuda.stream(x))
+            xq.data_ptr(), sx.data_ptr(), hq.data_ptr(), hs.data_ptr(),
+            out.data_ptr(), m, d, f, gs_d, gs_f, bf, float(eps),
+            int(residual), gp["ks"], gp["kmax"], dp["ks"], dp["kmax"],
+            _cuda.stream(x))
     _cuda.check(status, "fused_swiglu_q4")
     fused_swiglu_q4.launches += 1
     return out.reshape(*lead, d)

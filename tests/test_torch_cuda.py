@@ -386,13 +386,31 @@ def test_matmul_q4_kernel(gen, m, k, n, bias):
     assert torch.equal(got, Q4.matmul_q4(x, p["kernel_q4"], p["scale4"], b))
 
 
-@pytest.mark.parametrize("m", [1, 5, 32])
+@pytest.mark.parametrize("m", [1, 5, 8, 17, 32])
 def test_fused_swiglu_q4_kernel(gen, m):
-    """Kernel G at D 256, F 1536 (hidden block 384, two per half)."""
+    """Kernel G at D 256, F 1536 (hidden block 384, two per half): its
+    decode plan at one, two and four n8 tiles of rows."""
     gu = Q.quantize_kernel_int4(randn(gen, 256, 3072, std=0.1))
     dn = Q.quantize_kernel_int4(randn(gen, 1536, 256, std=0.1))
     args = (gu["kernel_q4"], gu["scale4"], dn["kernel_q4"], dn["scale4"])
     x, w = randn(gen, m, 256), 1 + randn(gen, 256, std=0.1)
+    got = launched(Q4.fused_swiglu_q4,
+                   lambda: Q4.fused_swiglu_q4(x, w, *args))
+    assert_close(got, Q4.fused_swiglu_q4_reference(x, w, *args))
+    assert torch.equal(got, Q4.fused_swiglu_q4(x, w, *args))
+
+
+@pytest.mark.parametrize("m,d,f,gs", [(8, 2048, 5632, 128),
+                                      (5, 768, 1536, 384),
+                                      (1, 6656, 17920, 128)])
+def test_fused_swiglu_q4_decode_plan_kernel(gen, m, d, f, gs):
+    """Kernel G's decode plan with K split over clusters of 8 (gate|up at
+    D 2048: 22 hidden blocks of 256) and 4, groups of 384 rows (three
+    128-row folds a group), and LLaMA-33B's widths; the same bits twice."""
+    gu = Q.quantize_kernel_int4(randn(gen, d, 2 * f, std=0.05), group_size=gs)
+    dn = Q.quantize_kernel_int4(randn(gen, f, d, std=0.05))
+    args = (gu["kernel_q4"], gu["scale4"], dn["kernel_q4"], dn["scale4"])
+    x, w = randn(gen, m, d), 1 + randn(gen, d, std=0.1)
     got = launched(Q4.fused_swiglu_q4,
                    lambda: Q4.fused_swiglu_q4(x, w, *args))
     assert_close(got, Q4.fused_swiglu_q4_reference(x, w, *args))
@@ -514,6 +532,105 @@ def test_paged_decode_attention_kernel(gen, qn, quant):
                                                     **kw))
     assert_close(got, D.paged_decode_attention_reference(q, kc, vc, table,
                                                          valid, **kw))
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,qn,quant,extra,mask", [
+    (3, 4, 4, 1000, 128, 1, False, True, "ragged"),   # S % 32 != 0
+    (3, 4, 4, 1000, 128, 1, True, True, "ragged"),
+    (2, 8, 8, 1024, 128, 1, True, True, "prefix40"),  # masked splits
+    (2, 8, 8, 1024, 128, 1, True, False, "prefix40"),
+    (2, 8, 8, 1024, 64, 1, False, False, "row_empty"),
+    (2, 8, 8, 1024, 64, 1, False, True, "row_empty"),
+    (1, 52, 52, 1024, 128, 5, False, True, "ragged"),  # B 1 verify
+    (1, 52, 52, 1024, 128, 5, True, True, "prefix40"),
+    (2, 4, 4, 300, 128, 32, True, True, "ragged"),     # qn 32
+    (2, 4, 4, 300, 64, 32, False, True, "row_empty"),
+    (2, 16, 2, 500, 128, 1, False, True, "ragged"),    # rep 8 GQA
+    (2, 16, 2, 500, 128, 4, True, True, "ragged"),
+    (2, 32, 2, 200, 64, 1, False, False, "row_empty"),  # rep 16: mma, Sq 1
+    (8, 52, 52, 1024, 128, 1, True, True, "engine"),   # 16-264 of 1024
+])
+def test_decode_attention_split_plans(gen, b, h, hkv, s, d, qn, quant, extra,
+                                      mask):
+    """Kernel D's split designs at their plans' edges: S not a multiple of
+    the chunk, splits whose chunks are all masked (with k_new, and without
+    it in a row that has a valid position: left unread), a row with no
+    valid position and no k_new (the uniform average over all S, merged
+    over splits), the B 1 verify, 32 queries, GQA rep 8 (and rep 16 at Sq 1:
+    the mma kernel), int8, D 64 and 128, the engine's occupancy; against
+    the twin, the same bits twice, counted under decode_plan's kernel."""
+    q = randn(gen, b, qn, h, d)
+    if quant:
+        kc, ks = _int8_planes(gen, 2, b, hkv, s, d)
+        vc, vs = _int8_planes(gen, 2, b, hkv, s, d)
+    else:
+        kc, vc = randn(gen, 2, b, hkv, s, d), randn(gen, 2, b, hkv, s, d)
+        ks = vs = None
+    kn = randn(gen, b, qn, hkv, d).transpose(1, 2) if extra else None
+    vn = randn(gen, b, qn, hkv, d).transpose(1, 2) if extra else None
+    pos = torch.arange(s, device="cuda")[None, :]
+    if mask == "prefix40":
+        valid = (pos < 40).expand(b, s).contiguous()
+    elif mask == "engine":
+        lens = torch.tensor([16, 40, 64, 100, 150, 200, 240, 264][:b],
+                            device="cuda")
+        valid = pos < lens[:, None]
+    else:
+        valid = torch.rand(b, s, device="cuda", generator=gen) > 0.3
+        if mask == "row_empty":
+            valid[0] = False
+    kw = dict(scale=d ** -0.5, layer=1, k_new=kn, v_new=vn)
+    plan = D.decode_plan(b, hkv, h // hkv, qn, s, d, kc.element_size())
+    before = D.decode_attention.plans[plan["kernel"]]
+    got = launched(D.decode_attention,
+                   lambda: D.decode_attention(q, kc, vc, valid, ks, vs, **kw))
+    assert plan["kernel"] in ("rows", "mma")
+    assert D.decode_attention.plans[plan["kernel"]] == before + 1
+    assert_close(got, D.decode_attention_reference(q, kc, vc, valid, ks, vs,
+                                                   **kw))
+    assert torch.equal(got, D.decode_attention(q, kc, vc, valid, ks, vs,
+                                               **kw))
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_decode_matches_dense_bit_for_bit(gen, quant):
+    """The page pool's decode step takes the split row kernel through the
+    page table: the same cache laid out in shuffled pages of 16 gives the
+    dense cache's output bit for bit (the paged lane's contract with the
+    dense engine), over every plan split of a 128-slot cache."""
+    n_layers, b, hkv, d, page, per_row = 2, 3, 52, 128, 16, 8
+    s = page * per_row
+    if quant:
+        kd, ks = _int8_planes(gen, n_layers, b, hkv, s, d)
+        vd, vs = _int8_planes(gen, n_layers, b, hkv, s, d)
+    else:
+        kd = randn(gen, n_layers, b, hkv, s, d)
+        vd = randn(gen, n_layers, b, hkv, s, d)
+        ks = vs = None
+    n_pages = b * per_row + 5
+    table = torch.randperm(n_pages, device="cuda", generator=gen)[
+        :b * per_row].reshape(b, per_row).int()
+    pools = []
+    for dense in (kd, vd):
+        pool = torch.zeros(n_layers, n_pages, hkv, page, d, device="cuda",
+                           dtype=dense.dtype)
+        for r in range(b):
+            for p in range(per_row):
+                pool[:, table[r, p]] = dense[:, r, :, p * page:(p + 1) * page]
+        pools.append(pool)
+    q = randn(gen, b, 1, hkv, d)
+    kn, vn = randn(gen, b, hkv, 1, d), randn(gen, b, hkv, 1, d)
+    valid = torch.arange(s, device="cuda")[None] < torch.tensor(
+        [64, 70, 127], device="cuda")[:, None]
+    kw = dict(scale=d ** -0.5, layer=1, k_new=kn, v_new=vn)
+    dense_out = D.decode_attention(q, kd, vd, valid, ks, vs, **kw)
+    before = D.paged_decode_attention.plans["rows"]
+    paged_out = launched(D.paged_decode_attention,
+                         lambda: D.paged_decode_attention(
+                             q, pools[0], pools[1], table, valid, k_scale=ks,
+                             v_scale=vs, **kw))
+    assert D.paged_decode_attention.plans["rows"] == before + 1
+    assert torch.equal(paged_out, dense_out)
 
 
 def test_decode_attention_refuses_unmet_constraints(gen):
