@@ -72,10 +72,12 @@ Phases (any failure raises and the script exits non-zero):
  16. a SwiGLU ViT at EVA02-CLIP-L-14 widths (RoPE, sub-LN off): 2 layers
      card (bf16) against the CPU (fp32), then 24 layers at batch 32, img/s;
  17. the ViT-parts bench (`emu_tpu_torch.tools.bench_vit_parts`) at ViT-g
-     and EVA-4B shapes: each part of a layer in µs beside its bound.
+     and EVA-4B shapes: each part of a layer in µs beside its bound, and
+     its W8A8 part (kernel E beside an int8 probe and kernel B).
 The line before the last is the kernels' JSON summary (with each kernel's
-bound and the time of one PyTorch call computing the same function, where
-there is one); the last line is {"ok": true, "device": {...}}. Without a
+bound and the time of its PyTorch yardstick: one call computing the same
+function where there is one, for B the chain of calls that computes it,
+for E torch._int_mm of its two products alone); the last line is {"ok": true, "device": {...}}. Without a
 CUDA card, or outside a checkout, it exits non-zero and prints no result.
 """
 
@@ -103,26 +105,26 @@ TRAIN_B, TRAIN_S, TRAIN_LR = 2, 1024, 5e-3
 # request served over HTTP
 GEN_STEPS, HTTP_GEN_STEPS = 50, 50
 # end-to-end figures of this run, filled by the phases and printed together
-# at the end beside the spread of the two runs of the previous version
-# (PERF.md section 5: the `git archive` and working-tree runs of the
-# version before kernel D's and G's redesign)
+# at the end beside the previous version's runs (PERF.md section 5: the
+# working-tree and `git archive` runs of the version before kernel B's and
+# E's redesign; one figure where only one run recorded it)
 E2E: dict = {}
 EARLIER_E2E = {
-    "emu2 1 image + question, beam 5 prefill ms": (106.67, 107.10),
-    "emu2 1 image + question, beam 5 decode ms/step": (47.37, 50.60),
-    "emu1 caption beam5 encode ms": (81.46, 83.47),
-    "emu1 caption beam5 prefill ms": (59.77, 66.06),
-    "emu1 caption beam5 decode ms/step": (38.48, 41.29),
-    "served mix int8 KV tok/s": (23.10, 32.52),
-    "engine decode step alone ms": (45.53, 84.91),
-    "engine decode step kernel ms": (42.56, 43.02),
-    "train ms/step": (1404.04, 1867.40),
-    "SDXL UNet ms/step": (101.12, 130.23),
-    "SDXL UNet profiled kernel ms": (69.52, 69.61),
-    "SDXL UNet kernel H ms": (19.87, 19.98),
-    "SD1.5 UNet ms/step": (52.68, 84.83),
-    "SD1.5 UNet profiled kernel ms": (19.96, 20.03),
-    "SwiGLU ViT img/s": (202.41, 203.55),
+    "emu2 1 image + question, beam 5 prefill ms": (108.23, 108.23),
+    "emu2 1 image + question, beam 5 decode ms/step": (35.89, 52.92),
+    "emu1 caption beam5 encode ms": (40.37, 40.37),
+    "emu1 caption beam5 prefill ms": (39.10, 39.10),
+    "emu1 caption beam5 decode ms/step": (39.31, 39.31),
+    "served mix int8 KV tok/s": (31.12, 37.09),
+    "engine decode step alone ms": (34.72, 47.48),
+    "engine decode step kernel ms": (20.41, 20.48),
+    "train ms/step": (1253.16, 1253.16),
+    "SDXL UNet ms/step": (86.19, 86.19),
+    "SDXL UNet profiled kernel ms": (69.58, 69.58),
+    "SDXL UNet kernel H ms": (19.94, 19.94),
+    "SD1.5 UNet ms/step": (50.26, 50.26),
+    "SD1.5 UNet profiled kernel ms": (20.05, 20.05),
+    "SwiGLU ViT img/s": (203.63, 203.63),
 }
 
 
@@ -143,17 +145,18 @@ def print_resources(log: str, lib) -> None:
     """Registers, shared memory and spills of the kernels redesigned for
     Hopper (A's forward, the W4A8 GEMM of F, batched_mha at each padded
     width, C's row kernel for bf16 and fp32 weights, the attention
-    backward's dQ and dK/dV kernels at each padded width, H's TMA GEMM,
-    D's split row kernel (one query head a kv head) and split mma kernel
-    (D 128) in bf16 and int8, G's decode plan at <= 8 rows, its dynamic
-    shared memory at LLaMA-33B's widths):
+    backward's dQ and dK/dV kernels at each padded width, H's TMA GEMM
+    and B's two activation forms of it (GELU, SwiGLU), E's W8A8 GEMM (fc2,
+    fc1), D's split row kernel (one query head a kv head) and split mma
+    kernel (D 128) in bf16 and int8, G's decode plan at <= 8 rows, its
+    dynamic shared memory at LLaMA-33B's widths):
     `cuobjdump
     --dump-resource-usage` on the built library (REG per thread, STACK
     bytes, where spills land, static SHARED), ptxas's spill stores/loads
     from the build log when this run built the library, and each kernel's
-    dynamic shared memory from its own plan. With setmaxnreg (F, dK/dV) REG
-    is the launch's allocation; the transform or producer warps then hand
-    some to the consumers."""
+    dynamic shared memory from its own plan. With setmaxnreg (F, E, dK/dV)
+    REG is the launch's allocation; the transform or producer warps then
+    hand some to the consumers."""
     import re
     from emu_tpu_torch.ops import _cuda
     from emu_tpu_torch.ops import decode_attention as D
@@ -196,7 +199,10 @@ def print_resources(log: str, lib) -> None:
            **{f"{kind}_kernelILi{dp}E": lib.emu_attention_bwd_smem(
                int(kind == "dkv"), dp) for kind in ("dq", "dkv")
               for dp in (64, 128)},
-           "dense_tma_kernel": lib.emu_fused_dense_smem(),
+           **{f"dense_tma_kernelILi{epi}E": lib.emu_fused_dense_smem()
+              for epi in (0, 1, 2)},
+           **{f"w8a8_gemm_kernelILb{fc1}E": lib.emu_w8a8_smem()
+              for fc1 in (0, 1)},
            **{f"decode_split_rows_kernelI{t}Li1E":
               lib.emu_decode_split_smem(1, 128, size)
               for t, size in (("13__nv_bfloat16", 2), ("a", 1))},
@@ -222,6 +228,31 @@ def print_resources(log: str, lib) -> None:
               f"{spills.get(name, 'ptxas: library built before this run')}")
     if seen != set(dyn):
         raise AssertionError(f"resources: cuobjdump lists {sorted(seen)}")
+
+
+def mlp_chain(x, w1, b1, w2, b2, w3=None, b3=None, ln_scale=None,
+              ln_bias=None, *, activation="gelu", ln_mode=None,
+              residual=False, eps=1e-6):
+    """Kernel B's function as a chain of PyTorch calls (F.layer_norm,
+    torch.addmm, F.gelu or silu times up, torch.addmm, the residual add),
+    in the input's dtype: B's yardstick, since no single PyTorch call
+    computes it. The port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    k = x.shape[-1]
+    xf = x.reshape(-1, k)
+    xn = (F.layer_norm(xf, (k,), ln_scale, ln_bias, eps) if ln_mode == "pre"
+          else xf)
+    if activation == "swiglu":
+        h = F.silu(torch.addmm(b1, xn, w1)) * torch.addmm(b2, xn, w2)
+        y = torch.addmm(b3, h, w3)
+    else:
+        y = torch.addmm(b2, F.gelu(torch.addmm(b1, xn, w1)), w2)
+    if ln_mode == "post":
+        y = F.layer_norm(y, (y.shape[-1],), ln_scale, ln_bias, eps)
+    if residual:
+        y = y + xf
+    return y.reshape(*x.shape[:-1], -1)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -259,6 +290,37 @@ def device_ms(fn, iters: int = 10, tries: int = 3):
         if total > 0:
             return total / 1e3 / iters
     return None
+
+
+def device_split(fn, iters: int = 5) -> dict:
+    """The card's time of one call of fn by kernel name, in ms
+    (torch.profiler); empty when the trace lost its events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            split[e.name] = split.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / iters
+    return split
+
+
+def print_split(label: str, fn, card: str) -> None:
+    split = device_split(fn)
+    shown = "; ".join(
+        f"{name.replace('void ', '').replace('(anonymous namespace)::', '')[:48]}"
+        f" {ms:.4f}" for name, ms in sorted(split.items(),
+                                            key=lambda kv: -kv[1]))
+    print(f"  {label}, card ms by kernel: {shown or 'not measured'}  "
+          f"[{card}]")
 
 
 def compare(name: str, got, ref, atol: float, rtol: float) -> dict:
@@ -327,6 +389,7 @@ def check_kernels(card: str) -> dict:
     same function (timed as a yardstick; the port never calls it)."""
     import torch
     import torch.nn.functional as F
+    from emu_tpu_torch.ops import _cuda
     from emu_tpu_torch.ops import decode_attention as D
     from emu_tpu_torch.ops import flash_attention as A
     from emu_tpu_torch.ops import fused_mlp as B
@@ -422,24 +485,35 @@ def check_kernels(card: str) -> dict:
         return (2 * m * k + wbytes * (k * f + f * n) + 2 * (f + n + 2 * k)
                 + 2 * m * n), 2 * m * k * f + 2 * m * f * n
 
-    # B: ViT-g MLP branch, M = 8 * 257 rows, 1408 -> 6144 -> 1408
-    x = randn(8, 257, 1408)
+    def same_bits(name, fn):
+        """No kernel here sums with atomics (D's split merges, G's cluster
+        sums, B's and E's products add in a fixed order): a second run
+        gives the same bits."""
+        if not torch.equal(fn(), fn()):
+            raise AssertionError(f"{name}: two runs gave different bits")
+
+    # B: ViT-g MLP branch, M = 8 * 257 rows, 1408 -> 6144 -> 1408; one
+    # image (257 rows); batch 32 (phase 17's 8224 rows). Library: the
+    # chain of PyTorch calls that computes the same function (no single
+    # call does), timed as one call site
+    x = randn(32, 257, 1408)
     w1, w2 = randn(1408, 6144, std=0.02), randn(6144, 1408, std=0.02)
     b1, b2 = randn(6144, std=0.1), randn(1408, std=0.1)
     lns, lnb = 1 + randn(1408, std=0.1), randn(1408, std=0.1)
     kw = dict(ln_scale=lns, ln_bias=lnb, ln_mode="pre", residual=True)
-    run("fused_mlp_2056x1408x6144", lambda: B.fused_mlp(x, w1, b1, w2, b2, **kw),
-        lambda: B.fused_mlp_reference(x, w1, b1, w2, b2, **kw),
-        2e-2, 2e-2, *mlp_cost(2056, 1408, 6144, 1408))
-    x1 = x[:1]   # one image: M = 257 rows
-    run("fused_mlp_257x1408x6144", lambda: B.fused_mlp(x1, w1, b1, w2, b2, **kw),
-        lambda: B.fused_mlp_reference(x1, w1, b1, w2, b2, **kw),
-        2e-2, 2e-2, *mlp_cost(257, 1408, 6144, 1408))
-    for xm in (x, x1):   # the hidden-dim splits sum in a fixed order
-        if not torch.equal(B.fused_mlp(xm, w1, b1, w2, b2, **kw),
-                           B.fused_mlp(xm, w1, b1, w2, b2, **kw)):
-            raise AssertionError("fused_mlp: two runs gave different bits")
-    print("  fused_mlp: two runs give the same bits at M = 2056 and 257")
+    for xm in (x[:8], x[:1], x):
+        m = xm.shape[0] * 257
+        run(f"fused_mlp_{m}x1408x6144",
+            lambda: B.fused_mlp(xm, w1, b1, w2, b2, **kw),
+            lambda: B.fused_mlp_reference(xm, w1, b1, w2, b2, **kw),
+            2e-2, 2e-2, *mlp_cost(m, 1408, 6144, 1408),
+            library=lambda: mlp_chain(xm, w1, b1, w2, b2, **kw))
+        same_bits(f"fused_mlp at M = {m}",
+                  lambda: B.fused_mlp(xm, w1, b1, w2, b2, **kw))
+    print("  fused_mlp: two runs give the same bits at M = 2056, 257, 8224")
+    print_split("fused_mlp at M = 2056", lambda: B.fused_mlp(
+        x[:8], w1, b1, w2, b2, **kw), card)
+    del x
 
     def norm_cost(rows, w, add, wbytes=2):
         return (2 * rows * w * (4 if add else 2) + wbytes * w
@@ -473,12 +547,6 @@ def check_kernels(card: str) -> dict:
         *norm_cost(640, 5120, True, 4))
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-
-    def same_bits(name, fn):
-        """The split merges (D) and the cluster sums (G) add in a fixed
-        order: a second run gives the same bits."""
-        if not torch.equal(fn(), fn()):
-            raise AssertionError(f"{name}: two runs gave different bits")
 
     def run_d(name, kernel, twin, cost, library=None):
         """Kernel D at one shape: against its twin, the same bits twice,
@@ -678,26 +746,45 @@ def check_kernels(card: str) -> dict:
         run(f"fused_mlp_post_{m}x1792x15360",
             lambda: B.fused_mlp(xm, w1, b1, w2, b2, **kw),
             lambda: B.fused_mlp_reference(xm, w1, b1, w2, b2, **kw),
-            2e-2, 2e-2, *mlp_cost(m, 1792, 15360, 1792))
-    # E: the W8A8 EVA-4B MLP branch at 2 and 4 images, pre- and post-LN,
-    # hidden blocks of 768
+            2e-2, 2e-2, *mlp_cost(m, 1792, 15360, 1792),
+            library=lambda: mlp_chain(xm, w1, b1, w2, b2, **kw))
+        same_bits(f"fused_mlp post at M = {m}",
+                  lambda: B.fused_mlp(xm, w1, b1, w2, b2, **kw))
+    # E: the W8A8 EVA-4B MLP branch at 2, 4 and 8 images (phase 7's
+    # two-image and 8-frame requests), pre- and post-LN, hidden blocks of
+    # 768. Library: torch._int_mm of its two products alone (int8 operands
+    # of the same shapes, int32 out), no scale, activation or
+    # requantization
     q1, q2 = Q.quantize_kernel(w1), Q.quantize_kernel(w2)
     wq = (q1["kernel_q8"], q1["scale"], b1, q2["kernel_q8"], q2["scale"], b2)
-    x4 = randn(4, 1025, 1792)
+    x8 = randn(8, 1025, 1792)
+
+    def int_mm_pair(m):
+        xq = torch.randint(-127, 128, (m, 1792), device=dev, generator=g,
+                           dtype=torch.int8)
+        hq = torch.randint(-127, 128, (m, 15360), device=dev, generator=g,
+                           dtype=torch.int8)
+        return lambda: (torch._int_mm(xq, wq[0]), torch._int_mm(hq, wq[3]))
+
     for mode in ("post", "pre"):
         ekw = dict(kw, ln_mode=mode, bf=768)
-        for xm, m in ((x, 2050), (x4, 4100)):
+        for images in (2, 4, 8):
+            xm, m = x8[:images], 1025 * images
             nb, ops = mlp_cost(m, 1792, 15360, 1792, wbytes=1.0)
             run(f"fused_mlp_w8a8_{mode}_{m}x1792x15360",
                 lambda: B.fused_mlp_w8a8(xm, *wq, **ekw),
                 lambda: B.fused_mlp_w8a8_reference(xm, *wq, **ekw),
-                2e-2, 2e-2, nb + 4 * (15360 + 1792), ops, "int8")
-            if not torch.equal(B.fused_mlp_w8a8(xm, *wq, **ekw),
-                               B.fused_mlp_w8a8(xm, *wq, **ekw)):
-                raise AssertionError("fused_mlp_w8a8: two runs gave "
-                                     "different bits")
-    print("  fused_mlp_w8a8: two runs give the same bits at M = 2050, 4100")
-    del w1, w2, q1, q2, wq, x4
+                2e-2, 2e-2, nb + 4 * (15360 + 1792), ops, "int8",
+                library=int_mm_pair(m))
+            same_bits(f"fused_mlp_w8a8 {mode} at M = {m}",
+                      lambda: B.fused_mlp_w8a8(xm, *wq, **ekw))
+    print_split("fused_mlp_w8a8 post at M = 4100", lambda: B.fused_mlp_w8a8(
+        x8[:4], *wq, **dict(kw, ln_mode="post", bf=768)), card)
+    plan = B.w8a8_plan(8200, 1792, 15360, 1792, 768)
+    print("  fused_mlp_w8a8: two runs give the same bits at M = 2050, 4100, "
+          f"8200; fc1's wave: {_cuda.library().emu_w8a8_fc1_clusters(plan['cluster'])}"
+          f" clusters of {plan['cluster']} blocks  [{card}]")
+    del w1, w2, q1, q2, wq, x8
     # F: int4 projections of LLaMA-33B: qkv and the lm_head (ragged N) at 5
     # beam rows; gate_up at a 330-token prefill, the engine's 32-row chunk,
     # 17 rows and q4_plan's 1024-row edge; library: torch.matmul on the
@@ -864,7 +951,8 @@ def check_dense_and_vit_kernels(run, randn, attn_cost, mlp_cost,
     (`_matmul_f32` + bias, the plain form's twin), the same bits twice at
     every shape; H's mma.sync plan at the shapes it takes (the time
     embedding's 2 rows, the patch embedding); B's SwiGLU form; and
-    `mha_packed_qkv` on the packed projection. Limits: H plain and pre,
+    `mha_packed_qkv` on the packed projection (B's library: the chain of
+    PyTorch calls, `mlp_chain`). Limits: H plain and pre,
     mha_packed_qkv 1e-2 + 1e-2 * max|ref|; H post + residual and B SwiGLU
     2e-2 + 2e-2 * max|ref| (as B). Library: cuBLAS through torch.addmm
     (fp32 output where the installed torch takes out_dtype, else bf16: one
@@ -964,7 +1052,8 @@ def check_dense_and_vit_kernels(run, randn, attn_cost, mlp_cost,
                 lambda: B.fused_mlp(x, w1, b1, w2, b2, w3, b3, **kw),
                 lambda: B.fused_mlp_reference(x, w1, b1, w2, b2, w3, b3,
                                               **kw),
-                2e-2, 2e-2, nb + 2 * (k * f + f), ops + 2 * m * k * f)
+                2e-2, 2e-2, nb + 2 * (k * f + f), ops + 2 * m * k * f,
+                library=lambda: mlp_chain(x, w1, b1, w2, b2, w3, b3, **kw))
             if not torch.equal(B.fused_mlp(x, w1, b1, w2, b2, w3, b3, **kw),
                                B.fused_mlp(x, w1, b1, w2, b2, w3, b3, **kw)):
                 raise AssertionError("fused_mlp swiglu: two runs gave "
@@ -1327,6 +1416,7 @@ def run_emu2_full(card: str, images) -> None:
         assert ids.shape == (1, MAX_NEW) and int(ids.max()) < vocab
         st = chat.last_stats
         steps = max(st["decode_steps"], 1)
+        E2E[f"emu2 {label} encode ms"] = st["encode_s"] * 1e3
         E2E[f"emu2 {label} prefill ms"] = st["prefill_s"] * 1e3
         E2E[f"emu2 {label} decode ms/step"] = st["decode_s"] * 1e3 / steps
         print(f"  {label}: images={st['images']} frames={st['frames']} "
@@ -2317,11 +2407,13 @@ def run_swiglu_vit(card: str) -> None:
 
 def run_vit_parts(card: str) -> None:
     """Phase 17: the ViT-parts bench (`emu_tpu_torch.tools.
-    bench_vit_parts`) at ViT-g's and EVA-4B's shapes on the card."""
+    bench_vit_parts`) at ViT-g's and EVA-4B's shapes on the card, with its
+    W8A8 part (kernel E beside the int8 probe and kernel B)."""
     import torch
     from emu_tpu_torch.tools import bench_vit_parts
     for model in ("g", "4b"):
-        bench_vit_parts.run(model, "cuda", out=lambda ln: print(f"  {ln}"))
+        bench_vit_parts.run(model, "cuda", out=lambda ln: print(f"  {ln}"),
+                            int8=True)
         torch.cuda.empty_cache()
 
 
@@ -2364,6 +2456,7 @@ KERNELS = [  # name, source, replaces, wrapper, checks (first one timed)
     ("fused_mlp", "emu_tpu_torch/csrc/fused_mlp.cu",
      "emu_tpu/ops/fused_mlp.py:357", "B.fused_mlp:gelu",
      ["fused_mlp_2056x1408x6144", "fused_mlp_257x1408x6144",
+      "fused_mlp_8224x1408x6144",
       "fused_mlp_post_1025x1792x15360", "fused_mlp_post_2050x1792x15360"]),
     ("add_rmsnorm", "emu_tpu_torch/csrc/rmsnorm.cu",
      "emu_tpu/ops/fused_norm.py:100", "C.rmsnorm_fwd",
@@ -2393,10 +2486,8 @@ KERNELS = [  # name, source, replaces, wrapper, checks (first one timed)
      ["paged_int8_b8_52x1024x128_p16"]),
     ("fused_mlp_w8a8", "emu_tpu_torch/csrc/fused_mlp_w8a8.cu",
      "emu_tpu/ops/fused_mlp.py:194", "B.fused_mlp_w8a8",
-     ["fused_mlp_w8a8_post_2050x1792x15360",
-      "fused_mlp_w8a8_post_4100x1792x15360",
-      "fused_mlp_w8a8_pre_2050x1792x15360",
-      "fused_mlp_w8a8_pre_4100x1792x15360"]),
+     [f"fused_mlp_w8a8_{mode}_{m}x1792x15360" for mode in ("post", "pre")
+      for m in (2050, 4100, 8200)]),
     ("matmul_q4", "emu_tpu_torch/csrc/q4_matmul.cu",
      "emu_tpu/ops/q4_matmul.py:91", "Q4.matmul_q4",
      ["matmul_q4_qkv_5x6656x19968", "matmul_q4_lm_head_5x6656x32274",
@@ -2596,7 +2687,7 @@ def main() -> int:
     print("[17] the ViT-parts bench at ViT-g and EVA-4B shapes")
     count(drive("ViT parts", wrappers,
                 ["fused_dense_pre", "fused_dense_post", "mha_packed_qkv",
-                 "batched_mha", "attention", "fused_mlp"],
+                 "batched_mha", "attention", "fused_mlp", "fused_mlp_w8a8"],
                 run_vit_parts, card)[0])
     print("  end-to-end figures, this run (the previous version's two runs,"
           " PERF.md section 5):")

@@ -1,440 +1,103 @@
-// Kernel B: the ViT MLP residual branch with its hidden activation kept on
-// chip, out = x + fc2(gelu(fc1(LN(x))))  (pre-LN optional, residual optional)
-// or, in the SwiGLU form, out = x + w3(silu(w1 LN(x) + b1) * (w2 LN(x) + b2))
+// Kernel B: the ViT MLP residual branch,
+//   out = x + fc2(gelu(fc1(LN(x))))        (pre-LN optional, residual optional)
+//   out = x + LN(fc2(gelu(fc1(x))))        (post-LN)
+//   out = x + w3(silu(w1 LN(x) + b1) * (w2 LN(x) + b2)) + b3   (SwiGLU)
 // bf16 in and out, fp32 LayerNorm, fp32 accumulation, exact erf GELU.
 //
 // Replaces the TPU kernel emu_tpu/ops/fused_mlp.py:fused_mlp: pre-LN +
 // residual (every Emu1 ViT-g block), post-LN + residual (every bf16 Emu2
-// EVA-4B block: x + LN(fc2(gelu(fc1(x))))), and the SwiGLU form of the EVA
-// rope variants (silu(g) * u rounded to bf16 before the output product, as
-// the TPU kernel's `h`). Post-LN needs the whole output row: the main kernel runs
-// without a norm, and a row epilogue (rows_epilogue_kernel, int8_mma.cuh)
-// sums the splits in split order, adds b2, normalises in fp32 over N and
-// adds the residual.
+// EVA-4B block) and the SwiGLU form of the EVA rope variants. The TPU
+// kernel keeps a [512, N] fp32 accumulator in VMEM while it walks the
+// hidden dim, so the [M, F] hidden activation never leaves the core; it
+// rounds that activation to bf16 (`h.astype(x.dtype)`) before the second
+// product.
 //
-// What bounds it on an H100: at ViT-g (M = B*257 rows, K = N = 1408,
-// F = 6144) the two products are 2*M*K*F*2 FLOPs. The point of fusing is
-// that the [M, F] hidden activation (4.4x the width of x) never reaches
-// device memory. The TPU kept a [bm, N] fp32 accumulator in 16 MB of VMEM;
-// a Hopper block has 227 KB of shared memory and 64K registers, so this
-// design keeps a SMALL ROW TILE: 16 rows per block, the whole [16, N] fp32
-// accumulator held in registers as WMMA fragments (8 warps, each owning
-// N/128 column tiles), the normalised [16, K] input in shared memory, and
-// the hidden dim walked 128 columns at a time (fc1 tile -> bias + GELU in
-// fp32 -> bf16 tile in shared memory -> accumulated into fc2).
+// What bounds it on an H100: the two products, 2 * M * K * F * 2 operations
+// (71 GFLOP at ViT-g's 2056 x 1408 -> 6144, 0.072 ms at the bf16 peak),
+// far above the bytes. The hidden activation cannot stay on chip at these
+// widths: wgmma tiles are at least 64 rows, and a 64-row block that owned
+// whole output rows would need 64 x N fp32 accumulators (360 KB at N =
+// 1408) against a 256 KB register file; splitting N across blocks makes
+// each recompute fc1, splitting F writes fp32 partial sums. The first
+// version (16-row tiles on WMMA, the [16, N] accumulator in registers, F
+// split over blocks into fp32 [splits, M, N]) re-read both weight
+// matrices from L2 for every 16 rows (4.5 GB at ViT-g batch 8) and ran
+// at 4-7x the time of the same chain of PyTorch calls.
 //
-// With 16 rows a block does little arithmetic per weight byte, so the
-// kernel is bound by how fast weights reach the SM: they stream through a
-// 3-slot shared-memory ring filled with coalesced 16-byte cp.async copies,
-// two chunks in flight while the tensor cores work on the third (2 slots,
-// one in flight, where three [16, N] w2 chunks do not fit beside the
-// [16, K] row tile: EVA-4B's K = N = 1792). The
-// chunk sequence per 128-wide hidden step is ceil(K/128) chunks of w1
-// ([128 k-rows, 128 hidden cols]) then 8 chunks of w2 ([16 hidden rows,
-// N cols]). The SwiGLU form streams a third matrix through the same ring
-// and the same slot size: ceil(K/128) chunks of the gate weights, as many
-// of the up weights (a second [16, 16] hidden fragment per warp), then the
-// 8 output chunks; its plan of registers and shared memory is the GELU
-// form's plus one fragment.
-//
-// Hidden widths that do not tile (EVA02-CLIP-L's 2730): columns past F
-// are zero-filled on load and masked in the activation (0 against the
-// zero-filled rows of the output weights). Where F is not a multiple of 8
-// the hidden-side chunks are copied 4 bytes at a time (an even F), since a
-// 16-byte copy would straddle rows.
-//
-// Few rows (one image: M = 257, 17 row tiles) would leave most SMs idle
-// with each block walking the whole hidden dim, so the hidden dim is also
-// split across blocks (grid = row tiles x F-splits, about two blocks per
-// SM): each split stores its fp32 partial [16, N] into its own slice of a
-// [splits, M, N] workspace with plain stores, and a second small kernel
-// sums the splits in a fixed order, adds b2 and the residual and casts.
-// No atomics, so the output is the same bits on every run. Every row tile
-// still reads both weight matrices from L2; sharing weight tiles across
-// row tiles (clusters/TMA multicast) and wgmma are the next steps.
+// This design lets the hidden activation cross device memory ONCE, in
+// bf16 (the value the TPU kernel rounds it to, so the numerics do not
+// change; 25 MB at ViT-g batch 8, inside the 50 MB L2), and runs both
+// products on dense_tma.cuh's TMA + wgmma GEMM (kernel H's plan: 128 x 128
+// tiles, two consumer warpgroups, a producer warp, a 3-stage ring):
+//   1. pre-LN: ln_rows_kernel writes xn = bf16(LN(x)), the TPU kernel's
+//      `xn` scratch (an in-GEMM LN redid it for every column block and
+//      measured slower than a row pass + the GEMM);
+//   2. fc1 with the activation in its epilogue (EPI_GELU: + b1, erf GELU;
+//      EPI_SWIGLU: gate and up columns of the same hidden units in one W
+//      tile, silu(g + b1) * (u + b2)), in fp32, one rounding to h [M, F];
+//   3. fc2 with H's epilogue: + b3/b2 and the residual in fp32, one
+//      rounding; the post form writes y = h @ W + b in fp32 and the row
+//      pass applies LN over N and adds the residual (H's post form).
+// No step sums across blocks and nothing uses atomics: two runs give the
+// same bits.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <math.h>
+#include "dense_tma.cuh"
 
-#include "int8_mma.cuh"
-
-using namespace nvcuda;
-
-namespace {
-
-constexpr int BM = 16;       // rows per block
-constexpr int BF = 128;      // hidden columns per step: one 16-wide tile per warp
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int MAX_NT = 14;   // output tiles per warp: N <= 8 * 14 * 16 = 1792
-constexpr int LDSCR = 20;    // fp32 scratch row stride
-constexpr int R1 = 128;      // w1 rows (of K) per chunk
-constexpr int R2 = 16;       // w2 rows (of F) per chunk
-constexpr int NK2 = BF / R2; // w2 chunks per hidden step
-constexpr int MAX_SMEM = 232448;  // bytes of shared memory a block may use
-
-struct MlpLayout {
-  int ldx, ldh, ld1, ld2;
-  size_t x_off, h_off, scr_off, ring_off, slot_bytes, total;
-};
-
-__host__ __device__ inline size_t round128(size_t v) { return (v + 127) / 128 * 128; }
-
-// slots: weight-ring depth, 3 (two chunks in flight) or, where three
-// [16, N] w2 chunks do not fit (EVA-4B's N = 1792), 2.
-__host__ __device__ inline MlpLayout mlp_layout(int K, int N, int slots) {
-  MlpLayout L;
-  L.ldx = K + 8;
-  L.ldh = BF + 8;
-  L.ld1 = BF + 8;
-  L.ld2 = N + 8;
-  size_t off = 0;
-  L.x_off = off; off += round128(sizeof(__nv_bfloat16) * BM * L.ldx);
-  L.h_off = off; off += round128(sizeof(__nv_bfloat16) * BM * L.ldh);
-  L.scr_off = off; off += round128(sizeof(float) * WARPS * 16 * LDSCR);
-  const size_t s1 = sizeof(__nv_bfloat16) * R1 * L.ld1;
-  const size_t s2 = sizeof(__nv_bfloat16) * R2 * L.ld2;
-  L.slot_bytes = round128(s1 > s2 ? s1 : s2);
-  L.ring_off = off; off += slots * L.slot_bytes;
-  L.total = off;
-  return L;
-}
-
-__device__ inline float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// 16-byte async copy global -> shared; src_bytes == 0 zero-fills.
-__device__ inline void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-// 4-byte async copy (a pair of bf16 values); src_bytes == 0 zero-fills.
-__device__ inline void cp_async4(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ inline void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// SWIGLU: w1 is the gate and wu the up projection, both [K, F]; wd the
-// output projection [F, N]. GELU: w1 is fc1, wu and bu unused, wd fc2.
-template <int SLOTS, bool SWIGLU>
-__global__ void __launch_bounds__(THREADS) fused_mlp_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ ln_s,
-    const __nv_bfloat16* __restrict__ ln_b, const __nv_bfloat16* __restrict__ w1,
-    const __nv_bfloat16* __restrict__ b1, const __nv_bfloat16* __restrict__ wu,
-    const __nv_bfloat16* __restrict__ bu, const __nv_bfloat16* __restrict__ wd,
-    float* __restrict__ ws, int M, int K, int F, int N, float eps,
-    int steps_per_split) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const MlpLayout L = mlp_layout(K, N, SLOTS);
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem + L.x_off);
-  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem + L.h_off);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* scr = reinterpret_cast<float*>(smem + L.scr_off) + warp * 16 * LDSCR;
-  const int m0 = blockIdx.x * BM;
-
-  constexpr int NH = SWIGLU ? 2 : 1;    // hidden-side matrices
-  const int nk1 = (K + R1 - 1) / R1;
-  const int n_hid = NH * nk1;           // hidden-side chunks per step
-  const int per_step = n_hid + NK2;
-  const bool vec = F % 8 == 0;          // 16-byte copies of hidden columns
-  // this block's hidden steps: [step0, step0 + n_steps) of 128 columns
-  const int step0 = blockIdx.y * steps_per_split;
-  const int n_steps = min(steps_per_split, (F + BF - 1) / BF - step0);
-  const int n_chunks = n_steps * per_step;
-
-  // Chunk q of the weight stream into ring slot q % SLOTS.
-  auto issue = [&](int q) {
-    if (q < n_chunks) {
-      __nv_bfloat16* slot =
-          reinterpret_cast<__nv_bfloat16*>(smem + L.ring_off + (q % SLOTS) * L.slot_bytes);
-      const int f0 = (step0 + q / per_step) * BF;
-      const int r = q % per_step;
-      if (r < n_hid) {        // w[k0:k0+R1, f0:f0+BF] of w1 or wu
-        const __nv_bfloat16* w = r < nk1 ? w1 : wu;
-        const int k0 = (r % nk1) * R1;
-        if (vec) {
-          for (int v = threadIdx.x; v < R1 * (BF / 8); v += THREADS) {
-            const int row = v / (BF / 8);
-            const int col = (v % (BF / 8)) * 8;
-            const bool ok = k0 + row < K && f0 + col < F;
-            cp_async16(slot + row * L.ld1 + col,
-                       ok ? w + static_cast<long long>(k0 + row) * F + f0 + col : w,
-                       ok ? 16 : 0);
-          }
-        } else {
-          for (int v = threadIdx.x; v < R1 * (BF / 2); v += THREADS) {
-            const int row = v / (BF / 2);
-            const int col = (v % (BF / 2)) * 2;
-            const bool ok = k0 + row < K && f0 + col < F;
-            cp_async4(slot + row * L.ld1 + col,
-                      ok ? w + static_cast<long long>(k0 + row) * F + f0 + col : w,
-                      ok ? 4 : 0);
-          }
-        }
-      } else {                // wd[fr:fr+R2, 0:N]
-        const int fr = f0 + (r - n_hid) * R2;
-        for (int v = threadIdx.x; v < R2 * (N / 8); v += THREADS) {
-          const int row = v / (N / 8);
-          const int col = (v % (N / 8)) * 8;
-          const bool ok = fr + row < F;
-          cp_async16(slot + row * L.ld2 + col,
-                     ok ? wd + static_cast<long long>(fr + row) * N + col : wd,
-                     ok ? 16 : 0);
-        }
-      }
-    }
-    cp_async_commit();        // an empty group past the end keeps the count
-  };
-
-  for (int q = 0; q < SLOTS - 1; ++q) issue(q);
-
-  // the row tile, LayerNorm'd in fp32 (two-pass mean/variance), as bf16
-  for (int r = warp; r < BM; r += WARPS) {
-    const int gr = m0 + r;
-    __nv_bfloat16* dst = xs + r * L.ldx;
-    if (gr >= M) {
-      for (int c = lane; c < K; c += 32) dst[c] = __float2bfloat16(0.f);
-      continue;
-    }
-    const __nv_bfloat16* src = x + static_cast<long long>(gr) * K;
-    if (ln_s == nullptr) {
-      for (int c = lane; c < K; c += 32) dst[c] = src[c];
-      continue;
-    }
-    float s = 0.f;
-    for (int c = lane; c < K; c += 32) s += __bfloat162float(src[c]);
-    const float mean = warp_sum(s) / K;
-    float v = 0.f;
-    for (int c = lane; c < K; c += 32) {
-      const float d = __bfloat162float(src[c]) - mean;
-      v += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(v) / K + eps);
-    for (int c = lane; c < K; c += 32) {
-      const float y = (__bfloat162float(src[c]) - mean) * rstd;
-      dst[c] = __float2bfloat16(y * __bfloat162float(ln_s[c]) + __bfloat162float(ln_b[c]));
-    }
-  }
-
-  // this warp's output column tiles: warp, warp + 8, warp + 16, ...
-  const int n_tiles = N / 16;
-  const int nt = (n_tiles - warp + WARPS - 1) / WARPS;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MAX_NT];
-#pragma unroll
-  for (int t = 0; t < MAX_NT; ++t) wmma::fill_fragment(acc[t], 0.f);
-  // this warp's [16, 16] hidden tile: fc1 / the gate, and the up product
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> hf, hu;
-
-  // hf or hu += the row tile's columns k0.. against the chunk in `slot`
-  auto hidden_mma = [&](wmma::fragment<wmma::accumulator, 16, 16, 16, float>& h,
-                        const __nv_bfloat16* slot, int k0) {
-    const int ksteps = min(R1, K - k0) / 16;
-    for (int kk = 0; kk < ksteps; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, xs + k0 + kk * 16, L.ldx);
-      wmma::load_matrix_sync(fb, slot + kk * 16 * L.ld1 + warp * 16, L.ld1);
-      wmma::mma_sync(h, fa, fb, h);
-    }
-  };
-
-  for (int q = 0; q < n_chunks; ++q) {
-    cp_async_wait<SLOTS - 2>();   // chunk q has landed (this thread's part)
-    __syncthreads();              // ... everyone's; slot (q-1) % 3 is free
-    issue(q + SLOTS - 1);
-    const __nv_bfloat16* slot =
-        reinterpret_cast<const __nv_bfloat16*>(smem + L.ring_off + (q % SLOTS) * L.slot_bytes);
-    const int f0 = (step0 + q / per_step) * BF;
-    const int r = q % per_step;
-    if (r < n_hid) {
-      const int k0 = (r % nk1) * R1;
-      if (r < nk1) {
-        if (r == 0) wmma::fill_fragment(hf, 0.f);
-        hidden_mma(hf, slot, k0);
-      } else {
-        if (r == nk1) wmma::fill_fragment(hu, 0.f);
-        hidden_mma(hu, slot, k0);
-      }
-      if (r == n_hid - 1) {
-        // + bias -> activation (fp32) -> bf16 hidden tile (read by every
-        // warp after the next __syncthreads); columns past F give 0
-        const int fc = f0 + warp * 16;
-        float hv[8];
-        wmma::store_matrix_sync(scr, hf, LDSCR, wmma::mem_row_major);
-        __syncwarp();
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int e = lane + 32 * i;
-          const int col = fc + e % 16;
-          float v = 0.f;
-          if (col < F) {
-            v = scr[(e / 16) * LDSCR + e % 16];
-            if (b1 != nullptr) v += __bfloat162float(b1[col]);
-            v = SWIGLU ? v / (1.f + expf(-v))
-                       : 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-          }
-          hv[i] = v;
-        }
-        if (SWIGLU) {
-          __syncwarp();
-          wmma::store_matrix_sync(scr, hu, LDSCR, wmma::mem_row_major);
-          __syncwarp();
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int e = lane + 32 * i;
-            const int col = fc + e % 16;
-            float u = 0.f;
-            if (col < F) {
-              u = scr[(e / 16) * LDSCR + e % 16];
-              if (bu != nullptr) u += __bfloat162float(bu[col]);
-            }
-            hv[i] *= u;
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int e = lane + 32 * i;
-          hs[(e / 16) * L.ldh + warp * 16 + e % 16] = __float2bfloat16(hv[i]);
-        }
-      }
-    } else {
-      // fc2: acc[16, N] += hidden[:, j*16:(j+1)*16] @ wd chunk [16, N]
-      const int j = r - n_hid;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, hs + j * 16, L.ldh);
-#pragma unroll
-      for (int t = 0; t < MAX_NT; ++t) {
-        if (t < nt) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, slot + (warp + t * WARPS) * 16, L.ld2);
-          wmma::mma_sync(acc[t], fa, fb, acc[t]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  // this split's fc2 partial sums into its own [M, N] slice of the workspace
-  float* part = ws + static_cast<long long>(blockIdx.y) * M * N;
-#pragma unroll
-  for (int t = 0; t < MAX_NT; ++t) {
-    if (t < nt) {
-      const int n0 = (warp + t * WARPS) * 16;
-      wmma::store_matrix_sync(scr, acc[t], LDSCR, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int rr = e / 16;
-        const int c = e % 16;
-        const int gr = m0 + rr;
-        if (gr < M) part[static_cast<long long>(gr) * N + n0 + c] = scr[rr * LDSCR + c];
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// out = bf16(sum of the split slices of ws, in split order, + b2 [+ x])
-// over [M, N] (residual needs N == K).
-__global__ void mlp_epilogue_kernel(const float* __restrict__ ws,
-                                    const __nv_bfloat16* __restrict__ b2,
-                                    const __nv_bfloat16* __restrict__ x,
-                                    __nv_bfloat16* __restrict__ out,
-                                    long long total, int N, int splits,
-                                    int residual) {
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    float y = ws[i];
-    for (int sp = 1; sp < splits; ++sp) y += ws[sp * total + i];
-    if (b2 != nullptr) y += __bfloat162float(b2[i % N]);
-    if (residual) y += __bfloat162float(x[i]);
-    out[i] = __float2bfloat16(y);
-  }
-}
-
-}  // namespace
-
-// The number of hidden-dim splits for M rows and hidden width F: about two
-// blocks per SM, every split at least one 128-wide hidden step. The caller
-// sizes the workspace of emu_fused_mlp_fwd with it.
-extern "C" int emu_fused_mlp_splits(int M, int F) {
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const int row_tiles = (M + BM - 1) / BM;
-  const int n_steps = (F + BF - 1) / BF;
-  int splits = (2 * sms + row_tiles - 1) / row_tiles;
-  splits = splits < 1 ? 1 : (splits > n_steps ? n_steps : splits);
-  const int steps_per_split = (n_steps + splits - 1) / splits;
-  return (n_steps + steps_per_split - 1) / steps_per_split;
-}
-
-// ws: an fp32 [splits, M, N] workspace that the caller allocates (no
-// zeroing needed: every element is stored once); splits as
-// emu_fused_mlp_splits(M, F) returns it. F must be even.
-// GELU (w3 == NULL): w1 [K, F], b1 [F], w2 [F, N], b2 [N].
+// GELU (w3 == NULL): w1 [K, F], b1 [F], w2 [Fw, N], b2 [N].
 // SwiGLU (w3 != NULL): w1 (gate) and w2 (up) [K, F] with b1, b2 [F], w3
-// [F, N] with b3 [N]. Biases may be NULL.
-// ln_post: ln_s/ln_b normalise the output (post-LN) instead of the input.
+// [Fw, N] with b3 [N]. Biases may be NULL; every vector is bf16.
+// F: the hidden width of w1 (and w2), a multiple of 8; the rows of the
+// output weights Fw <= F (hidden columns past Fw are zero).
+// ln_mode: 0 none, 1 pre (ln_s, ln_b [K]), 2 post ([N]). Scratch the
+// caller allocates: xn [M, K] bf16 (pre), h [M, F] bf16, ws [M, N] fp32
+// (post). residual needs N == K.
 extern "C" int emu_fused_mlp_fwd(const void* x, const void* ln_s, const void* ln_b,
                                  const void* w1, const void* b1, const void* w2,
-                                 const void* b2, const void* w3, const void* b3,
-                                 void* ws, void* out, int M, int K, int F, int N,
-                                 int splits, float eps, int residual, int ln_post,
-                                 void* stream) {
-  if (F % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bool swiglu = w3 != nullptr;
-  const bool deep = mlp_layout(K, N, 3).total <= MAX_SMEM;
-  const MlpLayout L = mlp_layout(K, N, deep ? 3 : 2);
-  auto kern = swiglu ? (deep ? fused_mlp_kernel<3, true> : fused_mlp_kernel<2, true>)
-                     : (deep ? fused_mlp_kernel<3, false> : fused_mlp_kernel<2, false>);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L.total));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int row_tiles = (M + BM - 1) / BM;
-  const int n_steps = (F + BF - 1) / BF;
-  const int steps_per_split = (n_steps + splits - 1) / splits;
-  // every split must own at least one step, or its slice stays unwritten
-  if (splits < 1 || (splits - 1) * steps_per_split >= n_steps)
+                                 const void* b2, const void* w3, const void* b3, void* xn,
+                                 void* h, void* ws, void* out, int M, int K, int F, int Fw,
+                                 int N, float eps, int residual, int ln_mode, void* stream) {
+  if (M <= 0 || K % 8 || N % 8 || F % 8 || Fw > F || ln_mode < PLAIN || ln_mode > POST
+      || (ln_mode != PLAIN && (ln_s == nullptr || ln_b == nullptr))
+      || (ln_mode == PRE && xn == nullptr) || (ln_mode == POST && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const bool swiglu = w3 != nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  typedef const __nv_bfloat16* cb;
-  const cb lns = static_cast<cb>(ln_s);
-  const cb lnb = static_cast<cb>(ln_b);
-  // the hidden-side up projection (SwiGLU), the output projection and its bias
-  const cb wu = swiglu ? static_cast<cb>(w2) : nullptr;
-  const cb bu = swiglu ? static_cast<cb>(b2) : nullptr;
-  const cb wd = static_cast<cb>(swiglu ? w3 : w2);
-  const cb bd = static_cast<cb>(swiglu ? b3 : b2);
-  kern<<<dim3(row_tiles, splits), THREADS, L.total, s>>>(
-      static_cast<cb>(x), ln_post ? nullptr : lns, lnb, static_cast<cb>(w1),
-      static_cast<cb>(b1), wu, bu, wd, static_cast<float*>(ws), M, K, F, N, eps,
-      steps_per_split);
-  err = cudaGetLastError();
+  typedef const bf16* cb;
+  cudaError_t err;
+  if (ln_mode == PRE) {
+    ln_rows_kernel<bf16><<<M, 256, 0, s>>>(static_cast<cb>(x), ln_s, ln_b, true, nullptr,
+                                           static_cast<bf16*>(xn), K, eps);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  DenseArgs a1 = {};   // h = act(LN(x) @ w1 + b1), [M, F]
+  a1.x = static_cast<cb>(ln_mode == PRE ? xn : x);
+  a1.w = static_cast<cb>(w1);
+  a1.bias = b1;
+  a1.bias_up = swiglu ? b2 : nullptr;
+  a1.vec_bf16 = true;
+  a1.out = static_cast<bf16*>(h);
+  a1.M = M; a1.K = K; a1.Kw = K; a1.N = F; a1.mode = PLAIN;
+  err = swiglu ? launch_tma<EPI_SWIGLU>(a1, static_cast<cb>(w2), s)
+               : launch_tma<EPI_GELU>(a1, nullptr, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (ln_post) {
-    rows_epilogue_kernel<<<M, 256, 0, s>>>(
-        static_cast<const float*>(ws), splits, M, N, bd, lns, lnb, eps,
-        residual ? static_cast<cb>(x) : nullptr, static_cast<__nv_bfloat16*>(out));
+
+  DenseArgs a2 = {};   // out = h @ wd + bd [+ x], or its fp32 ws (post)
+  a2.x = static_cast<cb>(h);
+  a2.w = static_cast<cb>(swiglu ? w3 : w2);
+  a2.bias = swiglu ? b3 : b2;
+  a2.vec_bf16 = true;
+  a2.res = residual && ln_mode != POST ? static_cast<cb>(x) : nullptr;
+  a2.ws = static_cast<float*>(ws);
+  a2.out = static_cast<bf16*>(out);
+  a2.M = M; a2.K = F; a2.Kw = Fw; a2.N = N; a2.mode = ln_mode == POST ? POST : PLAIN;
+  err = launch_tma<EPI_DENSE>(a2, nullptr, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (ln_mode == POST) {
+    ln_rows_kernel<float><<<M, 256, 0, s>>>(a2.ws, ln_s, ln_b, true,
+                                            residual ? static_cast<cb>(x) : nullptr,
+                                            static_cast<bf16*>(out), N, eps);
     return static_cast<int>(cudaGetLastError());
   }
-  const long long total = static_cast<long long>(M) * N;
-  const int blocks = static_cast<int>((total + 255) / 256 < 4 * sms ? (total + 255) / 256 : 4 * sms);
-  mlp_epilogue_kernel<<<blocks, 256, 0, s>>>(
-      static_cast<const float*>(ws), bd, static_cast<cb>(x),
-      static_cast<__nv_bfloat16*>(out), total, N, splits, residual);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaSuccess);
 }

@@ -13,35 +13,51 @@
 // EVA-4B widths), and fc2's integer sums of each block enter the fp32 sum
 // with that block's scale; then the column scale, b2, LayerNorm, residual.
 //
-// Layout on Hopper: four launches instead of one. The TPU kernel keeps a
-// [512, N] fp32 accumulator in VMEM while it walks the hidden blocks of a
-// row block in sequence; a Hopper block cannot hold that (the int32 and
-// fp32 sums of a 64 x 1792 tile alone need more registers than an SM
-// has), so here fc1 + GELU writes the fp32 hidden activation, one block
-// per (row, hidden block) re-quantizes it (each owns a whole bf-wide
-// block, so it takes the row max itself), fc2 runs as a tiled int8 GEMM
-// over all of F, and a row epilogue applies b2, the post-LN and the
-// residual. No step sums across blocks, so two runs give the same bits.
-//
-// What bounds it on an H100: 2 * M * K * F * 2 int8 operations (about
-// 0.45 T at M = 4100, 0.2 ms at the int8 peak) and, in this first version,
-// the byte-wise weight gathers of int8_gemm_kernel plus the fp32 hidden
-// activation's trip through device memory (M * F * 4 bytes written and
-// read). Keeping the hidden block on chip is the next step.
+// What bounds it on an H100: 2 * M * K * F * 2 int8 operations (0.45 T at
+// M = 4100, 0.23 ms at the int8 peak). The TPU kernel keeps a [512, N] fp32
+// accumulator in VMEM while it walks the hidden blocks of a row block in
+// sequence; a Hopper block cannot hold that, so the hidden activation
+// crosses device memory once, as what fc2 reads: int8 hq [M, F] and its
+// fp32 scales (M * F bytes, a quarter of the fp32 activation the first
+// version wrote and read back between its fc1 and a requantization pass).
+// Both products run on w8a8_gemm.cuh's wgmma GEMM, whose transform
+// warpgroup turns the N-major int8 weights K-major in shared memory (the
+// first version gathered them byte by byte into mma.sync tiles):
+//   1. quant_rows_kernel: xq [M, K] int8 and sx [M] (with the pre form's
+//      LayerNorm);
+//   2. fc1 (w8a8_gemm_kernel<true>): GELU and the requantization in its
+//      epilogue, the blocks of each hidden block a cluster that shares its
+//      row maxima through distributed shared memory, one wave of clusters
+//      walking the (row tile, hidden block) units;
+//   3. fc2 (w8a8_gemm_kernel<false>): the per-block fold, * s2 + b2 and the
+//      residual; the post form writes fp32 [M, N] and rows_epilogue_kernel
+//      normalises each row and adds the residual.
+// No step sums across blocks with atomics: two runs give the same bits.
 
-#include "int8_mma.cuh"
+#include "w8a8_gemm.cuh"
+
+// Dynamic shared memory of a block of the W8A8 GEMM (chip_smoke prints it).
+extern "C" int emu_w8a8_smem() { return W8Plan::SMEM; }
+
+// The clusters of `cluster` fc1 blocks the card holds at once: fc1's
+// persistent wave (chip_smoke prints it).
+extern "C" int emu_w8a8_fc1_clusters(int cluster) { return w8a8_fc1_clusters(cluster); }
 
 // ln_mode: 0 none, 1 pre (LayerNorm of x before quantization), 2 post
-// (LayerNorm of the MLP output). Scratch the caller allocates: xq [M, K]
-// int8, sx [M] fp32, h [M, F] fp32, hq [M, F] int8, hs [M, F / bf] fp32,
-// ws [M, N] fp32.
+// (LayerNorm of the MLP output). cluster: fc1's cluster size, which
+// w8a8_cluster(bf) gives (the caller's plan passes it down and it is
+// checked here). Scratch the caller allocates: xq [M, K] int8, sx [M]
+// fp32, hq [M, F] int8, hs [M, ceil(F / bf)] fp32, ws [M, N] fp32 (post).
+// K, F and N multiples of 16, bf of 128, N <= 2048.
 extern "C" int emu_fused_mlp_w8a8_fwd(const void* x, const void* w1, const void* s1,
                                       const void* b1, const void* w2, const void* s2,
                                       const void* b2, const void* ln_s, const void* ln_b,
                                       int ln_mode, int residual, float eps, void* xq, void* sx,
-                                      void* h, void* hq, void* hs, void* ws, void* out, int M,
-                                      int K, int F, int N, int bf, void* stream) {
-  if (K % KT || F % KT || bf % KT || F % bf || N > ROWS_MAX_PER_THREAD * 256)
+                                      void* hq, void* hs, void* ws, void* out, int M, int K,
+                                      int F, int N, int bf, int cluster, void* stream) {
+  if (M <= 0 || K % 16 || F % 16 || bf % W8_BN || N % 16
+      || N > ROWS_MAX_PER_THREAD * 256 || cluster != w8a8_cluster(bf)
+      || (ln_mode == 2 && ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
@@ -53,45 +69,36 @@ extern "C" int emu_fused_mlp_w8a8_fwd(const void* x, const void* w1, const void*
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  GemmArgs a = gemm_args();  // fc1: gelu((int * sx) * s1 + b1) -> fp32 [M, F]
-  a.a = static_cast<const int8_t*>(xq);
-  a.w = static_cast<const int8_t*>(w1);
+  W8Args a = {};  // fc1: hq, hs = requant(gelu((int * sx) * s1 + b1))
   a.w_scale = static_cast<const float*>(s1);
-  a.blk_scale = static_cast<const float*>(sx);
-  a.blk = K;
-  a.nblk = 1;
   a.bias = static_cast<const __nv_bfloat16*>(b1);
-  a.gelu = 1;
-  a.out_f32 = static_cast<float*>(h);
   a.M = M;
   a.N = F;
   a.K = K;
-  err = launch_w8a8_gemm(a, s);
+  a.row_scale = static_cast<const float*>(sx);
+  a.hq = static_cast<int8_t*>(hq);
+  a.hs = static_cast<float*>(hs);
+  a.bf = bf;
+  a.cluster = cluster;
+  err = launch_w8a8<true>(static_cast<const int8_t*>(xq), static_cast<const int8_t*>(w1), a, s);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  block_requant_kernel<<<dim3(M, F / bf), 256, 0, s>>>(
-      static_cast<const float*>(h), F, F, bf, 0, static_cast<int8_t*>(hq),
-      static_cast<float*>(hs));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  GemmArgs b = gemm_args();  // fc2: (sum over blocks of int * hs) * s2 -> fp32 [M, N]
-  b.a = static_cast<const int8_t*>(hq);
-  b.w = static_cast<const int8_t*>(w2);
+  W8Args b = {};  // fc2: (sum over blocks of int * hs) * s2 + b2 [+ x]
   b.w_scale = static_cast<const float*>(s2);
-  b.blk_scale = static_cast<const float*>(hs);
-  b.blk = bf;
-  b.nblk = F / bf;
-  b.out_f32 = static_cast<float*>(ws);
+  b.bias = static_cast<const __nv_bfloat16*>(b2);
   b.M = M;
   b.N = N;
   b.K = F;
-  err = launch_w8a8_gemm(b, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  b.bf = bf;
+  b.blk_scale = static_cast<const float*>(hs);
+  b.residual = residual && ln_mode != 2 ? xb : nullptr;
+  b.ws = ln_mode == 2 ? static_cast<float*>(ws) : nullptr;
+  b.out = static_cast<__nv_bfloat16*>(out);
+  err = launch_w8a8<false>(static_cast<const int8_t*>(hq), static_cast<const int8_t*>(w2), b, s);
+  if (err != cudaSuccess || ln_mode != 2) return static_cast<int>(err);
 
-  rows_epilogue_kernel<<<M, 256, 0, s>>>(
-      static_cast<const float*>(ws), 1, M, N, static_cast<const __nv_bfloat16*>(b2),
-      ln_mode == 2 ? lns : nullptr, lnb, eps, residual ? xb : nullptr,
-      static_cast<__nv_bfloat16*>(out));
+  rows_epilogue_kernel<<<M, 256, 0, s>>>(static_cast<const float*>(ws), 1, M, N, nullptr, lns,
+                                         lnb, eps, residual ? xb : nullptr,
+                                         static_cast<__nv_bfloat16*>(out));
   return static_cast<int>(cudaGetLastError());
 }

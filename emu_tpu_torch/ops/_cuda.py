@@ -36,12 +36,13 @@ SIGNATURES = {
     "emu_attention_bwd_dq": [_P] * 12 + [_I] * 6 + [_F, _I, _P],
     "emu_attention_bwd_dkv": [_P] * 12 + [_I] * 6 + [_F, _I, _P],
     "emu_attention_bwd_smem": [_I, _I],
-    "emu_fused_mlp_splits": [_I, _I],
-    "emu_fused_mlp_fwd": [_P] * 11 + [_I] * 5 + [_F, _I, _I, _P],
+    "emu_fused_mlp_fwd": [_P] * 13 + [_I] * 5 + [_F, _I, _I, _P],
     "emu_fused_dense_fwd": [_P] * 9 + [_I] * 6 + [_F, _P],
     "emu_fused_dense_smem": [],
-    "emu_fused_mlp_w8a8_fwd": [_P] * 9 + [_I, _I, _F] + [_P] * 7 + [_I] * 5
+    "emu_fused_mlp_w8a8_fwd": [_P] * 9 + [_I, _I, _F] + [_P] * 6 + [_I] * 6
                               + [_P],
+    "emu_w8a8_smem": [],
+    "emu_w8a8_fc1_clusters": [_I],
     "emu_w4a8_splits": [_I] * 4,
     "emu_w4a8_smem": [_I],
     "emu_attention_smem": [_I],

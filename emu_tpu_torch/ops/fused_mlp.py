@@ -5,12 +5,16 @@ Kernel B (`csrc/fused_mlp.cu`) replaces `emu_tpu/ops/fused_mlp.py:
 fused_mlp`: the GELU forms, pre-LN (every Emu1 ViT-g block) and post-LN
 (every bf16 Emu2 EVA-4B block), and the SwiGLU form (a SwiGLU EVA ViT);
 exact erf GELU or silu(g)·u, fp32 accumulation, fp32 LayerNorm, residual
-add, bf16 in and out, with the [M, hidden] activation kept out of device
-memory.
+add, bf16 in and out. Its two products run on kernel H's TMA + wgmma GEMM
+with the activation in the first one's epilogue; the [M, hidden]
+activation crosses device memory once, in bf16 (the value the TPU kernel
+rounds it to before the second product). `mlp_plan` is its host side.
 
 Kernel E (`csrc/fused_mlp_w8a8.cu`) replaces `fused_mlp_w8a8`: the W8A8
 GELU MLP with per-row activation quantization and the hidden activation
-re-quantized per row within each block of `bf` hidden columns.
+re-quantized per row within each block of `bf` hidden columns, both
+products on s8 wgmma, fc1's blocks of one hidden block a thread-block
+cluster sharing their row maxima. `w8a8_plan` is its host side.
 
 Kernel H (`csrc/fused_dense.cu`) replaces `fused_dense`: [LN(x) →] x·W +
 b [→ LN over the row] [+ residual], the product on the tensor cores in
@@ -30,9 +34,6 @@ import torch.nn.functional as F
 
 from emu_tpu_torch.ops import _cuda
 from emu_tpu_torch.ops.quant import int_matmul, quantize_activations
-
-_MAX_N = 1792  # kernel B keeps [16, N] fp32 in registers: 8 warps x 14 tiles
-
 
 def _matmul_f32(x, w):
     """x @ w with the fp32 sum kept, not rounded to x's dtype: the
@@ -76,6 +77,49 @@ def fused_mlp_reference(x, w1, b1, w2, b2, w3=None, b3=None, ln_scale=None,
     return y.to(dt)
 
 
+# Kernel B's hidden activation crosses device memory once, in bf16; its
+# width is F rounded up to this, since the tensor maps of the first
+# product's weights and of h need rows of a whole 16 bytes
+MLP_F_ALIGN = 8
+# the C entries' LayerNorm placement (B, E and H)
+_LN_MODES = {None: 0, "pre": 1, "post": 2}
+
+
+def mlp_plan(m: int, k: int, f: int, n: int, activation: str = "gelu",
+             ln_mode=None) -> dict:
+    """Kernel B's host-side plan for x [m, k] -> hidden [m, f] -> [m, n]:
+    `f_pad`, the hidden width the first product writes (the hidden-side
+    weights are zero-padded to it when f is not a multiple of
+    MLP_F_ALIGN); `cols`, the hidden columns a block of the first product
+    owns (SwiGLU: 64 gate and 64 up columns of the same units); the grids
+    of both products (blocks along N, along M: 128-row tiles); the
+    workspaces in bytes (xn: the pre form's LN(x), h: the hidden
+    activation, ws: the post form's fp32 output). A function of the shape
+    alone; raises ValueError outside the kernel's envelope."""
+    _cuda.require(activation in ("gelu", "swiglu"),
+                  f"fused_mlp: unknown activation {activation!r}")
+    _cuda.require(ln_mode in _LN_MODES,
+                  f"fused_mlp: unknown ln_mode {ln_mode!r}")
+    _cuda.require(m > 0 and f > 0 and k % 16 == 0 and n % 16 == 0,
+                  f"fused_mlp: K, N must be multiples of 16 (got {k}, {n})")
+    f_pad = -(-f // MLP_F_ALIGN) * MLP_F_ALIGN
+    cols = 64 if activation == "swiglu" else 128
+    rows = -(-m // 128)
+    return {"f_pad": f_pad, "pad": f_pad != f, "cols": cols,
+            "grid1": (-(-f_pad // cols), rows),
+            "grid2": (-(-n // 128), rows),
+            "xn_bytes": 2 * m * k if ln_mode == "pre" else 0,
+            "h_bytes": 2 * m * f_pad,
+            "ws_bytes": 4 * m * n if ln_mode == "post" else 0}
+
+
+def mlp_hidden_columns(plan: dict, bx: int) -> range:
+    """The hidden columns that block bx of kernel B's first product
+    writes (its tile of `cols`, cut at f_pad)."""
+    c0 = bx * plan["cols"]
+    return range(c0, min(c0 + plan["cols"], plan["f_pad"]))
+
+
 def fused_mlp(x, w1, b1, w2, b2, w3=None, b3=None, ln_scale=None,
               ln_bias=None, *, activation: str = "gelu", ln_mode=None,
               residual: bool = False, eps: float = 1e-6) -> torch.Tensor:
@@ -91,8 +135,6 @@ def fused_mlp(x, w1, b1, w2, b2, w3=None, b3=None, ln_scale=None,
             eps=eps)
     _cuda.refuse_grad("fused_mlp", x, w1, b1, w2, b2, w3, b3, ln_scale,
                       ln_bias)
-    _cuda.require(activation in ("gelu", "swiglu"),
-                  f"fused_mlp: unknown activation {activation!r}")
     swiglu = activation == "swiglu"
     # the hidden-side weights [K, F] and the output projection [F, N]
     w_out, b_out = (w3, b3) if swiglu else (w2, b2)
@@ -107,45 +149,45 @@ def fused_mlp(x, w1, b1, w2, b2, w3=None, b3=None, ln_scale=None,
                   and w_out.shape == (f, n),
                   f"fused_mlp: bad shapes x{tuple(x.shape)} "
                   f"w1{tuple(w1.shape)} w_out{tuple(w_out.shape)}")
-    _cuda.require(k % 16 == 0 and n % 16 == 0 and n <= _MAX_N,
-                  f"fused_mlp: K, N must be multiples of 16 and N <= "
-                  f"{_MAX_N} (got {k}, {n})")
     _cuda.require(not residual or n == k, "fused_mlp: residual needs N == K")
     _cuda.require((ln_mode is not None) == (ln_scale is not None),
                   "fused_mlp: ln_mode needs ln_scale and ln_bias")
-    b_hid = [b1, b2] if swiglu else [b1]
-    if f % 2:
-        # the kernel streams hidden columns in pairs: one zero column more,
-        # act(0) = silu(0)·0 = 0 against a zero row of the output weights
-        hidden = [F.pad(w, (0, 1)) for w in hidden]
-        b_hid = [None if t is None else F.pad(t, (0, 1)) for t in b_hid]
-        w_out, f = F.pad(w_out, (0, 0, 0, 1)), f + 1
     xf = x.reshape(-1, k).contiguous()
+    m = xf.shape[0]
+    plan = mlp_plan(m, k, f, n, activation, ln_mode)
+    b_hid = [b1, b2] if swiglu else [b1]
+    if plan["pad"]:
+        # zero hidden columns up to f_pad: act(0) = silu(0)·0 = 0, and the
+        # output weights' rows past F read as zeros in the kernel
+        grow = plan["f_pad"] - f
+        hidden = [F.pad(w, (0, grow)) for w in hidden]
+        b_hid = [None if t is None else F.pad(t, (0, grow)) for t in b_hid]
     hidden = [w.contiguous() for w in hidden]
     w_out = w_out.contiguous()
     for name, t in (("x", xf), *zip(("w1", "w2"), hidden), ("w_out", w_out)):
-        _cuda.require(t.device == x.device and t.data_ptr() % 32 == 0,
-                      f"fused_mlp: {name} must be 32-byte aligned")
+        _cuda.require(t.device == x.device and t.data_ptr() % 16 == 0,
+                      f"fused_mlp: {name} must be 16-byte aligned")
     lns, lnb, *bias = [None if t is None else t.to(bf).contiguous()
                        for t in (ln_scale, ln_bias, *b_hid, b_out)]
     # the C entry's (w2, b2) and (w3, b3): SwiGLU's up and output
     # projections; GELU's output projection and NULL
     w3_, b3_ = (w_out, bias[2]) if swiglu else (None, None)
     w2_ = hidden[1] if swiglu else w_out
-    m = xf.shape[0]
     out = torch.empty(m, n, device=x.device, dtype=bf)
+    dev = x.device
+    xn = (torch.empty(m, k, device=dev, dtype=bf) if plan["xn_bytes"]
+          else None)
+    h = torch.empty(m, plan["f_pad"], device=dev, dtype=bf)
+    ws = (torch.empty(m, n, device=dev, dtype=torch.float32)
+          if plan["ws_bytes"] else None)
     with _cuda.device_of(x):
-        lib = _cuda.library()
-        # fp32 partial sums, one [M, N] slice per hidden-dim split, summed
-        # in a fixed order (see csrc/fused_mlp.cu)
-        splits = lib.emu_fused_mlp_splits(m, f)
-        ws = torch.empty(splits, m, n, device=x.device, dtype=torch.float32)
-        status = lib.emu_fused_mlp_fwd(
+        status = _cuda.library().emu_fused_mlp_fwd(
             xf.data_ptr(), _cuda.ptr(lns), _cuda.ptr(lnb),
             hidden[0].data_ptr(), _cuda.ptr(bias[0]), w2_.data_ptr(),
-            _cuda.ptr(bias[1]), _cuda.ptr(w3_), _cuda.ptr(b3_),
-            ws.data_ptr(), out.data_ptr(), m, k, f, n, splits, float(eps),
-            int(residual), int(ln_mode == "post"), _cuda.stream(x))
+            _cuda.ptr(bias[1]), _cuda.ptr(w3_), _cuda.ptr(b3_), _cuda.ptr(xn),
+            h.data_ptr(), _cuda.ptr(ws), out.data_ptr(), m, k,
+            plan["f_pad"], f, n, float(eps), int(residual),
+            _LN_MODES[ln_mode], _cuda.stream(x))
     _cuda.check(status, "fused_mlp")
     fused_mlp.launches += 1
     fused_mlp.forms[activation] += 1
@@ -205,6 +247,60 @@ def fused_mlp_w8a8_reference(x, w1_q8, scale1, b1, w2_q8, scale2, b2,
     return y.to(x.dtype).reshape(*x.shape[:-1], n)
 
 
+W8A8_TILE = 128        # kernel E's output tiles: 128 x 128, K 128 bytes a step
+W8A8_MAX_CLUSTER = 8   # the portable thread-block cluster
+
+
+def w8a8_plan(m: int, k: int, f: int, n: int, bf: int) -> dict:
+    """Kernel E's host-side plan for x [m, k] -> hidden [m, f] (re-quantized
+    per row within blocks of bf columns) -> [m, n]: `cluster`, the blocks of
+    fc1 that share one hidden block's row maxima (the largest divisor of
+    bf / 128 that is at most W8A8_MAX_CLUSTER; the library checks the same
+    rule), `tiles`, the 128-column tiles each of them owns (more than one:
+    computed once for the maxima and once to quantize, `recompute`),
+    `blocks`, the hidden blocks (a last one narrower than bf is the TPU
+    wrapper's zero padding), `units`, fc1's (row tile, hidden block) work
+    units, which one wave of clusters walks (the library sizes the wave to
+    what the card holds at once; `w8a8_fc1_work`), fc2's grid, and the
+    workspaces in bytes (xq, sx, hq, hs; ws: the post form's fp32
+    output). A function of the shape alone; raises ValueError outside the
+    kernel's envelope."""
+    _cuda.require(m > 0 and k % 16 == 0 and f % 16 == 0 and n % 16 == 0
+                  and bf > 0 and bf % W8A8_TILE == 0 and n <= 2048,
+                  f"fused_mlp_w8a8: K, F, N must be multiples of 16, bf of "
+                  f"{W8A8_TILE}, N <= 2048 (got {k}, {f}, {n}, bf {bf})")
+    per = bf // W8A8_TILE
+    cluster = max(c for c in range(1, W8A8_MAX_CLUSTER + 1) if per % c == 0)
+    blocks = -(-f // bf)
+    rows = -(-m // W8A8_TILE)
+    return {"cluster": cluster, "tiles": per // cluster,
+            "recompute": per > cluster, "blocks": blocks,
+            "row_tiles": rows, "units": blocks * rows,
+            "grid2": (-(-n // W8A8_TILE), rows),
+            "xq_bytes": m * k, "sx_bytes": 4 * m, "hq_bytes": m * f,
+            "hs_bytes": 4 * m * blocks, "ws_bytes": 4 * m * n}
+
+
+def w8a8_fc1_work(plan: dict, bf: int, f: int, clusters: int,
+                  bx: int) -> list:
+    """The (row tile, hidden column) pairs that block bx of kernel E's
+    persistent fc1 quantizes when the wave holds `clusters` clusters, as
+    the kernel walks them: cluster bx // cluster takes the units u = id +
+    k * clusters (row tile u // blocks, hidden block u % blocks), and rank
+    bx % cluster owns `tiles` consecutive 128-column tiles of each, cut at
+    f."""
+    c, t = plan["cluster"], plan["tiles"]
+    cid, rank = bx // c, bx % c
+    work = []
+    for u in range(cid, plan["units"], clusters):
+        row, jb = divmod(u, plan["blocks"])
+        for q in range(t):
+            c0 = (jb * (bf // W8A8_TILE) + rank * t + q) * W8A8_TILE
+            work.extend((row, col) for col in range(c0, min(c0 + W8A8_TILE,
+                                                              f)))
+    return work
+
+
 def fused_mlp_w8a8(x, w1_q8, scale1, b1, w2_q8, scale2, b2, ln_scale=None,
                    ln_bias=None, *, ln_mode=None, residual: bool = False,
                    eps: float = 1e-6, bf: int = 768) -> torch.Tensor:
@@ -226,37 +322,37 @@ def fused_mlp_w8a8(x, w1_q8, scale1, b1, w2_q8, scale2, b2, ln_scale=None,
     _cuda.require(w1_q8.shape == (k, f) and w2_q8.shape == (f, n),
                   f"fused_mlp_w8a8: bad shapes x{tuple(x.shape)} "
                   f"w1{tuple(w1_q8.shape)} w2{tuple(w2_q8.shape)}")
-    _cuda.require(k % 128 == 0 and f % 128 == 0 and bf % 128 == 0
-                  and f % bf == 0 and n <= 2048,
-                  f"fused_mlp_w8a8: K, F, bf must be multiples of 128, F of "
-                  f"bf, N <= 2048 (got {k}, {f}, {bf}, {n})")
     _cuda.require(not residual or n == k,
                   "fused_mlp_w8a8: residual needs N == K")
-    _cuda.require((ln_mode is not None) == (ln_scale is not None),
+    _cuda.require(ln_mode in _LN_MODES
+                  and (ln_mode is not None) == (ln_scale is not None),
                   "fused_mlp_w8a8: ln_mode needs ln_scale and ln_bias")
     xf = x.reshape(-1, k).contiguous()
     m = xf.shape[0]
+    plan = w8a8_plan(m, k, f, n, bf)
     vec = [None if t is None else t.to(bf16).contiguous()
            for t in (b1, b2, ln_scale, ln_bias)]
     w1_q8, w2_q8 = w1_q8.contiguous(), w2_q8.contiguous()
+    for name, t in (("x", xf), ("w1", w1_q8), ("w2", w2_q8)):
+        _cuda.require(t.device == x.device and t.data_ptr() % 16 == 0,
+                      f"fused_mlp_w8a8: {name} must be 16-byte aligned")
     scale1, scale2 = scale1.float().contiguous(), scale2.float().contiguous()
     dev = x.device
     xq, sx = torch.empty(m, k, device=dev, dtype=i8), torch.empty(m, device=dev)
-    h, hq = (torch.empty(m, f, device=dev, dtype=f32),
-             torch.empty(m, f, device=dev, dtype=i8))
-    hs = torch.empty(m, f // bf, device=dev, dtype=f32)
-    ws = torch.empty(m, n, device=dev, dtype=f32)
+    hq = torch.empty(m, f, device=dev, dtype=i8)
+    hs = torch.empty(m, plan["blocks"], device=dev, dtype=f32)
+    ws = (torch.empty(m, n, device=dev, dtype=f32) if ln_mode == "post"
+          else None)
     out = torch.empty(m, n, device=dev, dtype=bf16)
     with _cuda.device_of(x):
         status = _cuda.library().emu_fused_mlp_w8a8_fwd(
             xf.data_ptr(), w1_q8.data_ptr(), scale1.data_ptr(),
             _cuda.ptr(vec[0]), w2_q8.data_ptr(), scale2.data_ptr(),
-            _cuda.ptr(vec[1]),
-            _cuda.ptr(vec[2]), _cuda.ptr(vec[3]),
-            {None: 0, "pre": 1, "post": 2}[ln_mode], int(residual),
-            float(eps), xq.data_ptr(), sx.data_ptr(), h.data_ptr(),
-            hq.data_ptr(), hs.data_ptr(), ws.data_ptr(), out.data_ptr(),
-            m, k, f, n, bf, _cuda.stream(x))
+            _cuda.ptr(vec[1]), _cuda.ptr(vec[2]), _cuda.ptr(vec[3]),
+            _LN_MODES[ln_mode], int(residual), float(eps), xq.data_ptr(),
+            sx.data_ptr(), hq.data_ptr(), hs.data_ptr(), _cuda.ptr(ws),
+            out.data_ptr(), m, k, f, n, bf, plan["cluster"],
+            _cuda.stream(x))
     _cuda.check(status, "fused_mlp_w8a8")
     fused_mlp_w8a8.launches += 1
     return out.reshape(*lead, n)
@@ -285,7 +381,6 @@ def fused_dense_reference(x, w, b=None, ln_scale=None, ln_bias=None,
     return y.to(dt)
 
 
-_DENSE_MODES = {None: 0, "pre": 1, "post": 2}
 _DENSE_PLANS = {"mma": 0, "tma": 1}
 # Aligned denses of at most this many rows keep the mma.sync plan. At the
 # UNets' 2-row time embedding (2 x 320 -> 1280) a call costs the host more
@@ -322,7 +417,7 @@ def fused_dense(x, w, b=None, ln_scale=None, ln_bias=None, residual=None, *,
     bf = torch.bfloat16
     # the shape messages are built only on failure: this wrapper carries
     # every biased dense of the UNets, so its host time is their step's
-    if ln_mode not in _DENSE_MODES:
+    if ln_mode not in _LN_MODES:
         raise ValueError(f"fused_dense: unknown ln_mode {ln_mode!r}")
     _cuda.require(x.dtype == w.dtype == bf,
                   "fused_dense: x and w must be bfloat16")
@@ -362,7 +457,7 @@ def fused_dense(x, w, b=None, ln_scale=None, ln_bias=None, residual=None, *,
         status = _cuda.library().emu_fused_dense_fwd(
             xf.data_ptr(), w.data_ptr(), _cuda.ptr(b), _cuda.ptr(ln_scale),
             _cuda.ptr(ln_bias), _cuda.ptr(residual), _cuda.ptr(xn),
-            _cuda.ptr(ws), out.data_ptr(), m, k, n, _DENSE_MODES[ln_mode],
+            _cuda.ptr(ws), out.data_ptr(), m, k, n, _LN_MODES[ln_mode],
             int(vec_bf16), _DENSE_PLANS[plan], float(eps), _cuda.stream(x))
     _cuda.check(status, "fused_dense")
     fused_dense.launches += 1

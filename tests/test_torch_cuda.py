@@ -4,7 +4,7 @@ These need a CUDA card and `nvcc`, and skip without a card. They import no
 jax, so on a machine without it run them with the JAX test harness left
 out:  python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 Edge shapes here (ragged rows and columns, D = 64/88/128, GQA, no biases,
-both tile configurations of the int8 GEMM) complement chip_smoke.py, which
+kernel E's cluster plans) complement chip_smoke.py, which
 checks the Emu1 and Emu2-Chat paths' own shapes."""
 
 import pytest
@@ -91,8 +91,8 @@ def test_attention_kernel(gen, b, h, hkv, sq, skv, d, causal, bias):
     (37, 64, 160, 64, True, True), (16, 128, 128, 96, False, False),
     (257, 128, 1024, 128, True, True)])
 def test_fused_mlp_kernel(gen, m, k, f, n, ln, bias):
-    """Also: the same bits on a second run (the hidden-dim splits are summed
-    in a fixed order)."""
+    """Also: the same bits on a second run (no atomics, every sum in a
+    fixed order)."""
     x = randn(gen, m, k)
     w1, w2 = randn(gen, k, f, std=0.1), randn(gen, f, n, std=0.1)
     b1 = randn(gen, f) if bias else None
@@ -113,10 +113,10 @@ def test_fused_mlp_refuses_unported_forms(gen):
 
 
 @pytest.mark.parametrize("m,f,ln_mode,bias", [
-    (37, 90, "pre", True),       # F % 8 != 0: 4-byte copies, masked columns
+    (37, 90, "pre", True),       # F % 8 != 0: the wrapper pads to 96
     (257, 2730, "post", True),   # EVA02-CLIP-L's hidden width
     (300, 256, None, False),
-    (16, 129, "pre", False)])    # odd F: the wrapper pads one zero column
+    (16, 129, "pre", False)])    # odd F: the wrapper pads to 136
 def test_fused_mlp_swiglu_kernel(gen, m, f, ln_mode, bias):
     """Kernel B's SwiGLU form x + w3(silu(w1 x + b1) * (w2 x + b2)) + b3,
     pre-, post- and no LN; the same bits on a second run."""
@@ -360,6 +360,89 @@ def test_fused_mlp_w8a8_kernel(gen, m, ln_mode):
         kw.update(ln_scale=1 + randn(gen, k, std=0.1), ln_bias=randn(gen, k))
     got = launched(B.fused_mlp_w8a8, lambda: B.fused_mlp_w8a8(x, *ws, **kw))
     assert_close(got, B.fused_mlp_w8a8_reference(x, *ws, **kw))
+    assert torch.equal(got, B.fused_mlp_w8a8(x, *ws, **kw))
+
+
+@pytest.mark.parametrize("m", [100, 129])
+@pytest.mark.parametrize("ln_mode", ["pre", "post", None])
+def test_fused_mlp_kernel_ragged_rows_no_biases(gen, m, ln_mode):
+    """Kernel B's GELU forms at M below and above one 128-row tile, with
+    no biases; the same bits on a second run."""
+    k, f = 128, 384
+    x = randn(gen, m, k)
+    w1, w2 = randn(gen, k, f, std=0.1), randn(gen, f, k, std=0.1)
+    kw = dict(ln_mode=ln_mode, residual=True)
+    if ln_mode:
+        kw.update(ln_scale=1 + randn(gen, k, std=0.1), ln_bias=randn(gen, k))
+    got = launched(B.fused_mlp,
+                   lambda: B.fused_mlp(x, w1, None, w2, None, **kw))
+    assert_close(got, B.fused_mlp_reference(x, w1, None, w2, None, **kw))
+    assert torch.equal(got, B.fused_mlp(x, w1, None, w2, None, **kw))
+
+
+@pytest.mark.parametrize("activation,ln_mode", [
+    ("gelu", "pre"), ("gelu", "post"), ("swiglu", "pre"), ("swiglu", None)])
+def test_fused_mlp_kernel_long_grids(gen, activation, ln_mode):
+    """Kernel B at 4200 ragged rows, K = N = F = 2048 (grids of 264-528
+    blocks, more than one wave of them), each form; the same bits twice."""
+    m, k, f = 4200, 2048, 2048
+    x = randn(gen, m, k)
+    w1, w2 = randn(gen, k, f, std=0.03), randn(gen, f, k, std=0.03)
+    b1, b2 = randn(gen, f, std=0.1), randn(gen, k, std=0.1)
+    args = (x, w1, b1, w2, b2)
+    if activation == "swiglu":
+        args = (x, w1, b1, randn(gen, k, f, std=0.03), randn(gen, f, std=0.1),
+                randn(gen, f, k, std=0.03), None)
+    kw = dict(activation=activation, ln_mode=ln_mode, residual=True)
+    if ln_mode:
+        kw.update(ln_scale=1 + randn(gen, k, std=0.1), ln_bias=randn(gen, k))
+    got = launched(B.fused_mlp, lambda: B.fused_mlp(*args, **kw))
+    assert_close(got, B.fused_mlp_reference(*args, **kw))
+    assert torch.equal(got, B.fused_mlp(*args, **kw))
+
+
+@pytest.mark.parametrize("m,f", [(100, 2731), (129, 90)])
+def test_fused_mlp_swiglu_kernel_odd_hidden_no_biases(gen, m, f):
+    """Kernel B's SwiGLU form with a hidden width the wrapper pads (odd,
+    and not a multiple of 8) and no biases, pre-LN."""
+    k = 128
+    x = randn(gen, m, k)
+    w1, w2 = randn(gen, k, f, std=0.1), randn(gen, k, f, std=0.1)
+    w3 = randn(gen, f, k, std=0.1)
+    kw = dict(activation="swiglu", ln_mode="pre", residual=True,
+              ln_scale=1 + randn(gen, k, std=0.1), ln_bias=randn(gen, k))
+    args = (x, w1, None, w2, None, w3, None)
+    got = launched(B.fused_mlp, lambda: B.fused_mlp(*args, **kw))
+    assert_close(got, B.fused_mlp_reference(*args, **kw))
+    assert torch.equal(got, B.fused_mlp(*args, **kw))
+
+
+@pytest.mark.parametrize("m,k,f,bf,ln_mode,bias", [
+    (130, 1792, 15360, 768, "post", True),   # EVA-4B widths, clusters of 6
+    (100, 1792, 3072, 768, "pre", False),
+    (129, 128, 1024, 128, None, True),       # one block a hidden block
+    (64, 128, 2304, 1152, "pre", True),      # 9 tiles: 3 ranks x 3, twice
+    (40, 32, 128, 768, "post", False),       # tiny: F < bf, K < 128
+])
+def test_fused_mlp_w8a8_kernel_plans(gen, m, k, f, bf, ln_mode, bias):
+    """Kernel E at its plan's edges: ragged M below and above a 128-row
+    tile, bf 768 at K = N = 1792, a cluster of one, a hidden block of nine
+    tiles (the maxima computed, then each tile again to quantize), a
+    hidden width below bf and K below one 128-byte step; biases None; the
+    same bits on a second run."""
+    ws = list(_w8a8(gen, k, f, k))
+    if not bias:
+        ws[2] = ws[5] = None
+    kw = dict(ln_mode=ln_mode, residual=True, bf=bf)
+    if ln_mode:
+        kw.update(ln_scale=1 + randn(gen, k, std=0.1), ln_bias=randn(gen, k))
+    x = randn(gen, m, k)
+    got = launched(B.fused_mlp_w8a8, lambda: B.fused_mlp_w8a8(x, *ws, **kw))
+    # the twin on CPU copies: its integer products are exact there at any
+    # width (cuBLAS's int8 product refuses some small ones on the card)
+    cpu = [None if t is None else t.cpu() for t in (x, *ws)]
+    ckw = {k_: v.cpu() if torch.is_tensor(v) else v for k_, v in kw.items()}
+    assert_close(got.cpu(), B.fused_mlp_w8a8_reference(*cpu, **ckw))
     assert torch.equal(got, B.fused_mlp_w8a8(x, *ws, **kw))
 
 

@@ -269,6 +269,23 @@ def test_bench_vit_parts_runs_every_part_on_the_cpu():
     assert not any("us/layer" in ln for ln in lines)
 
 
+def test_bench_vit_parts_int8_part_on_the_cpu():
+    """--int8 adds the W8A8 parts after the bf16 ones: kernel E's twin at
+    the route's hidden block, the W8A8 qkv product and the quantization
+    alone, each run once with a bound and no time."""
+    lines = []
+    res = bench_vit_parts.run("tiny", "cpu", out=lines.append, int8=True)
+    shape = bench_vit_parts.SHAPES["tiny"]
+    b, s, w, h, d = (shape[k] for k in ("b", "s", "w", "h", "d"))
+    assert len(res) == 11 and all(r["us"] is None for r in res.values())
+    assert res[bench_vit_parts.W8A8_MLP]["shape"] == (b, s, w)
+    assert res["W8A8 qkv (matmul_w8a8, dynamic quant)"]["shape"] == (
+        b, s, 3 * h * d)
+    assert res["quantize_activations alone"]["shape"] == (b, s, w)
+    assert all(r["bound_us"] > 0 for r in res.values())
+    assert "W8A8 parts" in lines and not any("us/layer" in ln for ln in lines)
+
+
 # --- repairs: fp32 and out-of-envelope inputs at bf16-only kernels ----------
 
 def test_decode_kernel_fits_its_envelope():
