@@ -16,9 +16,12 @@ Phases (any failure raises and the script exits non-zero):
      cross-attention shapes, the measurement behind that route; kernel H
      against the fp32 route it replaced and, at every shape its TMA plan
      takes, against its mma.sync plan, the same bits twice; kernel D's
-     four forms, with the plan each launch took, and kernel G at 1, 5 and
-     the continuous engine's 8 rows, the same bits twice; D int8 also at
-     the engine's occupancy, rows of 16-264 in its 1024 slots);
+     four forms, dense and paged, with the plan each launch took, the
+     paged chunk forms also against the dense ones bit for bit, and kernel
+     G at 1, 5 and the continuous engine's 8 rows, the same bits twice; D
+     int8 also at the engine's occupancy, rows of 16-264 in its 1024
+     slots; C's backward with bf16 and fp32 weights, dx and dw the same
+     bits twice);
   4. a full-width Emu1 cut to 2 layers, built from one seed: last-position
      logits of one caption prompt on the card (bf16, kernels) against the
      CPU (fp32, plain twins);
@@ -106,25 +109,26 @@ TRAIN_B, TRAIN_S, TRAIN_LR = 2, 1024, 5e-3
 GEN_STEPS, HTTP_GEN_STEPS = 50, 50
 # end-to-end figures of this run, filled by the phases and printed together
 # at the end beside the previous version's runs (PERF.md section 5: the
-# working-tree and `git archive` runs of the version before kernel B's and
-# E's redesign; one figure where only one run recorded it)
+# working-tree and `git archive` runs after kernel B's and E's redesign;
+# one figure where only one run recorded it, and the version before theirs
+# where neither did)
 E2E: dict = {}
 EARLIER_E2E = {
     "emu2 1 image + question, beam 5 prefill ms": (108.23, 108.23),
     "emu2 1 image + question, beam 5 decode ms/step": (35.89, 52.92),
-    "emu1 caption beam5 encode ms": (40.37, 40.37),
+    "emu1 caption beam5 encode ms": (73.54, 77.05),
     "emu1 caption beam5 prefill ms": (39.10, 39.10),
     "emu1 caption beam5 decode ms/step": (39.31, 39.31),
-    "served mix int8 KV tok/s": (31.12, 37.09),
+    "served mix int8 KV tok/s": (22.94, 33.42),
     "engine decode step alone ms": (34.72, 47.48),
     "engine decode step kernel ms": (20.41, 20.48),
-    "train ms/step": (1253.16, 1253.16),
-    "SDXL UNet ms/step": (86.19, 86.19),
-    "SDXL UNet profiled kernel ms": (69.58, 69.58),
+    "train ms/step": (1310.72, 1943.44),
+    "SDXL UNet ms/step": (102.35, 124.71),
+    "SDXL UNet profiled kernel ms": (69.42, 69.42),
     "SDXL UNet kernel H ms": (19.94, 19.94),
-    "SD1.5 UNet ms/step": (50.26, 50.26),
+    "SD1.5 UNet ms/step": (46.00, 46.00),
     "SD1.5 UNet profiled kernel ms": (20.05, 20.05),
-    "SwiGLU ViT img/s": (203.63, 203.63),
+    "SwiGLU ViT img/s": (554.74, 857.26),
 }
 
 
@@ -144,11 +148,12 @@ def card_line() -> str:
 def print_resources(log: str, lib) -> None:
     """Registers, shared memory and spills of the kernels redesigned for
     Hopper (A's forward, the W4A8 GEMM of F, batched_mha at each padded
-    width, C's row kernel for bf16 and fp32 weights, the attention
+    width, C's row kernel for bf16 and fp32 weights and its backward's at
+    2048 x 5120 (five vectors a thread, the ring), the attention
     backward's dQ and dK/dV kernels at each padded width, H's TMA GEMM
     and B's two activation forms of it (GELU, SwiGLU), E's W8A8 GEMM (fc2,
     fc1), D's split row kernel (one query head a kv head) and split mma
-    kernel (D 128) in bf16 and int8, G's decode plan at <= 8 rows, its
+    kernel (D 128) in bf16 and int8, dense and paged, G's decode plan at <= 8 rows, its
     dynamic shared memory at LLaMA-33B's widths):
     `cuobjdump
     --dump-resource-usage` on the built library (REG per thread, STACK
@@ -160,6 +165,7 @@ def print_resources(log: str, lib) -> None:
     import re
     from emu_tpu_torch.ops import _cuda
     from emu_tpu_torch.ops import decode_attention as D
+    from emu_tpu_torch.ops import fused_norm as C
     from emu_tpu_torch.ops import q4_matmul as Q4
     # the host's copies of the split designs' shared-memory formulas (the
     # plans size their grids with them) against the library's
@@ -196,6 +202,9 @@ def print_resources(log: str, lib) -> None:
               for dp in (64, 128, 192, 256)},
            "add_rmsnorm_rows_kernelI13__nv_bfloat16E": 0,
            "add_rmsnorm_rows_kernelIfE": 0,
+           **{f"add_rmsnorm_bwd_rows_kernelI{t}Li5EE":
+              C.norm_bwd_plan(2048, 5120)["smem"]
+              for t in ("13__nv_bfloat16", "f")},
            **{f"{kind}_kernelILi{dp}E": lib.emu_attention_bwd_smem(
                int(kind == "dkv"), dp) for kind in ("dq", "dkv")
               for dp in (64, 128)},
@@ -206,9 +215,10 @@ def print_resources(log: str, lib) -> None:
            **{f"decode_split_rows_kernelI{t}Li1E":
               lib.emu_decode_split_smem(1, 128, size)
               for t, size in (("13__nv_bfloat16", 2), ("a", 1))},
-           **{f"decode_split_mma_kernelI{t}Li128E":
+           **{f"decode_split_mma_kernelI{t}Li128ELb{paged}E":
               lib.emu_decode_split_smem(0, 128, size)
-              for t, size in (("13__nv_bfloat16", 2), ("a", 1))},
+              for t, size in (("13__nv_bfloat16", 2), ("a", 1))
+              for paged in (0, 1)},
            "w4a8_decode_kernelILi1ELi8ELb1E": plan["gate_up"]["smem"],
            "w4a8_decode_kernelILi1ELi4ELb0E": plan["down"]["smem"]}
     seen, name = set(), None
@@ -548,16 +558,19 @@ def check_kernels(card: str) -> dict:
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def run_d(name, kernel, twin, cost, library=None):
+    def run_d(name, kernel, twin, cost, library=None,
+              wrapper=D.decode_attention):
         """Kernel D at one shape: against its twin, the same bits twice,
-        and the plan decode_plan gave the launch."""
+        and the plan decode_plan gave the launch (counted in `wrapper`'s
+        plans). Returns the plan."""
         run(name, kernel, twin, 1e-2, 1e-2, *cost, library=library)
         same_bits(name, kernel)
-        before = dict(D.decode_attention.plans)
+        before = dict(wrapper.plans)
         kernel()
-        plan = {k: v - before[k] for k, v in D.decode_attention.plans.items()
+        plan = {k: v - before[k] for k, v in wrapper.plans.items()
                 if v != before[k]}
         print(f"  {name}: the same bits twice; plan {plan}")
+        return plan
 
     def decode_cost(b, h, hkv, d, lens, qn=1, itemsize=2, extra=True,
                     scales=False):
@@ -707,12 +720,13 @@ def check_kernels(card: str) -> dict:
                   qt, kcat, vcat, attn_mask=m, scale=128 ** -0.5))
     del kc, vc, kcb, vcb, kcat, vcat
     # D-paged: 8 rows of 64 pages of 16 through a shuffled table, bf16 and
-    # int8 (scales already gathered to the logical view)
+    # int8 (scales already gathered to the logical view): the decode step
+    # (Sq = 1) and the 32-query chunk form, the latter also against the
+    # dense chunk form over the same logical cache, bit for bit. No one
+    # PyTorch call reads a page pool: no library time
     page, n_pages = 16, 8 * (S // 16) + 16
     table = torch.randperm(n_pages, device=dev, generator=g)[
         :8 * (S // page)].reshape(8, S // page).int()
-    qd = randn(8, 1, H, 128)
-    kn, vn = chunk_extra(8, 1)
     for quant in (False, True):
         pool = (2, n_pages, H, page, 128)
         if quant:
@@ -722,17 +736,36 @@ def check_kernels(card: str) -> dict:
             pvs = torch.rand(2, 8, H, S, device=dev, generator=g) * 0.02
         else:
             kp, vp, pks, pvs = randn(*pool), randn(*pool), None, None
-        pkw = dict(scale=128 ** -0.5, k_scale=pks, v_scale=pvs, layer=1,
-                   k_new=kn, v_new=vn)
-        run(f"paged_{'int8' if quant else 'bf16'}_b8_52x1024x128_p16",
-            lambda: D.paged_decode_attention(qd, kp, vp, table, valid8,
-                                             **pkw),
-            lambda: D.paged_decode_attention_reference(qd, kp, vp, table,
+        tag = "int8" if quant else "bf16"
+        for qn in (1, 32):
+            qd = randn(8, qn, H, 128)
+            kn, vn = chunk_extra(8, qn)
+            pkw = dict(scale=128 ** -0.5, k_scale=pks, v_scale=pvs, layer=1,
+                       k_new=kn, v_new=vn)
+            name = (f"paged_{tag}_b8_52x1024x128_p16" if qn == 1 else
+                    f"paged_chunk_{tag}_b8_q32_52x1024x128_p16")
+            plan = run_d(
+                name, lambda: D.paged_decode_attention(qd, kp, vp, table,
                                                        valid8, **pkw),
-            1e-2, 1e-2, *decode_cost(8, H, H, 128, lens8,
-                                     itemsize=1 if quant else 2,
-                                     scales=quant))
-        del kp, vp
+                lambda: D.paged_decode_attention_reference(qd, kp, vp, table,
+                                                           valid8, **pkw),
+                decode_cost(8, H, H, 128, lens8, qn=qn,
+                            itemsize=1 if quant else 2, scales=quant),
+                wrapper=D.paged_decode_attention)
+            if plan != {"rows" if qn == 1 else "mma": 1}:
+                raise AssertionError(f"{name}: took the plan {plan}")
+        # the dense chunk form over the pages gathered to the logical cache
+        kd, vd = (torch.stack([torch.zeros_like(D.gather_pages(t[1], table)),
+                               D.gather_pages(t[1], table)]) for t in (kp, vp))
+        paged = D.paged_decode_attention(qd, kp, vp, table, valid8, **pkw)
+        dense = D.decode_attention(qd, kd, vd, valid8, pks, pvs, **{
+            k: v for k, v in pkw.items() if k not in ("k_scale", "v_scale")})
+        if not torch.equal(paged, dense):
+            raise AssertionError(f"paged_chunk_{tag}: differs from the dense "
+                                 "chunk form over the same logical cache")
+        print(f"  paged_chunk_{tag}: the dense chunk form's bits over the "
+              "same logical cache")
+        del kp, vp, kd, vd
     torch.cuda.empty_cache()
 
     # B-post: the bf16 EVA-4B MLP branch x + LN(fc2(gelu(fc1 x))),
@@ -1081,8 +1114,8 @@ def check_training_kernels(run, randn, attn_cost, results) -> None:
     heads of 128, 2 x 1024 tokens, causal, a left-padded row): kernel A
     with its lse, the dQ and dK/dV kernels (also GQA rep 2, and at 4096
     causal keys, the TPU's tiled backward tier), the norm backward at
-    2048 x 5120 with and without the add, and kernel A at Sq = Skv = 8192
-    (the TPU's streaming tier)."""
+    2048 x 5120 with and without the add (and with an fp32 w), and kernel A
+    at Sq = Skv = 8192 (the TPU's streaming tier)."""
     import torch
     import torch.nn.functional as F
     from emu_tpu_torch.ops import flash_attention as A
@@ -1163,9 +1196,13 @@ def check_training_kernels(run, randn, attn_cost, results) -> None:
     del q, k, v, do, o, lse, d_row
     torch.cuda.empty_cache()
 
+    # the norm backward, bf16 w in both forms and an fp32 w (read as stored)
     rows, wd = b * s, 5120
-    w = 1 + randn(wd, std=0.1)
-    for add in (True, False):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    w16 = 1 + randn(wd, std=0.1)
+    w32 = 1 + torch.randn(wd, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED)) * 0.1
+    for add, w in ((True, w16), (False, w16), (True, w32)):
         x, dh = randn(rows, wd), randn(rows, wd)
         r, dy = (randn(rows, wd), randn(rows, wd)) if add else (None, None)
         y, _, rsig = C.rmsnorm_fwd(w, x, r)
@@ -1174,20 +1211,23 @@ def check_training_kernels(run, randn, attn_cost, results) -> None:
         yl = leaves[0] + leaves[2] if add else leaves[0]
         hl = F.rms_norm(yl, (wd,), leaves[1], eps=1e-6)
         outs, cots = ((yl, hl), (dy, dh)) if add else ((hl,), (dh,))
-        tag = "add" if add else "rms"
-        run(f"rmsnorm_bwd_{tag}_{rows}x{wd}",
-            lambda: C.rmsnorm_bwd(y, w, rsig, dh, dy),
+        name = (f"rmsnorm_bwd_{'add' if add else 'rms'}_{rows}x{wd}"
+                + ("_w_fp32" if w is w32 else ""))
+        # bytes: y, dh (and dy_ext) read, dx written, w read, dw written,
+        # rsigma read
+        wb = w.element_size()
+        run(name, lambda: C.rmsnorm_bwd(y, w, rsig, dh, dy),
             lambda: C.rmsnorm_bwd_reference(y, w, rsig, dh, dy), None, None,
-            2 * rows * wd * (4 if add else 3) + 8 * wd + 4 * rows,
+            2 * rows * wd * (4 if add else 3) + 2 * wb * wd + 4 * rows,
             10 * rows * wd, "fp32",
             library=lambda: torch.autograd.grad(outs, leaves, cots,
                                                 retain_graph=True))
-        if not torch.equal(C.rmsnorm_bwd(y, w, rsig, dh, dy)[1],
-                           C.rmsnorm_bwd(y, w, rsig, dh, dy)[1]):
-            raise AssertionError(f"rmsnorm_bwd_{tag}: two runs gave "
-                                 "different dw bits")
-    print("  rmsnorm_bwd: two runs give the same dw bits (add and no add)")
-    del x, dh, r, dy, y, leaves, yl, hl, outs, cots
+        one, two = (C.rmsnorm_bwd(y, w, rsig, dh, dy) for _ in range(2))
+        if not (torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])):
+            raise AssertionError(f"{name}: two runs gave different bits")
+        plan = C.norm_bwd_plan(rows, wd, sms)
+        print(f"  {name}: dx and dw the same bits twice; plan {plan}")
+    del x, dh, r, dy, y, leaves, yl, hl, outs, cots, one, two
     torch.cuda.empty_cache()
 
     # the backward at 4096 causal keys, the TPU's tiled tier
@@ -2452,7 +2492,8 @@ KERNELS = [  # name, source, replaces, wrapper, checks (first one timed)
       "attention_bwd_dkv_1x8x4096x128"]),
     ("rmsnorm_bwd", "emu_tpu_torch/csrc/rmsnorm.cu",
      "emu_tpu/ops/fused_norm.py:139", "C.rmsnorm_bwd",
-     ["rmsnorm_bwd_add_2048x5120", "rmsnorm_bwd_rms_2048x5120"]),
+     ["rmsnorm_bwd_add_2048x5120", "rmsnorm_bwd_rms_2048x5120",
+      "rmsnorm_bwd_add_2048x5120_w_fp32"]),
     ("fused_mlp", "emu_tpu_torch/csrc/fused_mlp.cu",
      "emu_tpu/ops/fused_mlp.py:357", "B.fused_mlp:gelu",
      ["fused_mlp_2056x1408x6144", "fused_mlp_257x1408x6144",
@@ -2484,6 +2525,15 @@ KERNELS = [  # name, source, replaces, wrapper, checks (first one timed)
     ("paged_decode_attention_int8", "emu_tpu_torch/csrc/decode_attention.cu",
      "emu_tpu/ops/decode_attention.py:313", "D.paged_decode_attention:int8",
      ["paged_int8_b8_52x1024x128_p16"]),
+    ("paged_decode_attention_chunk", "emu_tpu_torch/csrc/decode_attention.cu",
+     "emu_tpu/ops/decode_attention.py:313",
+     "D.paged_decode_attention:chunk_bf16",
+     ["paged_chunk_bf16_b8_q32_52x1024x128_p16"]),
+    ("paged_decode_attention_chunk_int8",
+     "emu_tpu_torch/csrc/decode_attention.cu",
+     "emu_tpu/ops/decode_attention.py:313",
+     "D.paged_decode_attention:chunk_int8",
+     ["paged_chunk_int8_b8_q32_52x1024x128_p16"]),
     ("fused_mlp_w8a8", "emu_tpu_torch/csrc/fused_mlp_w8a8.cu",
      "emu_tpu/ops/fused_mlp.py:194", "B.fused_mlp_w8a8",
      [f"fused_mlp_w8a8_{mode}_{m}x1792x15360" for mode in ("post", "pre")

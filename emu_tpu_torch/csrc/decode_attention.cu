@@ -24,9 +24,9 @@
 // FLOPs per byte reach ~32 (bf16) to ~64 (int8), more than CUDA-core FMAs
 // keep up with, so the chunk form runs its products on the tensor cores.
 //
-// The dense cache takes the split designs, and so do the page pool's Sq = 1
-// forms (the row kernel's bulk copies follow the page table, so a paged
-// lane computes what the dense one does, bit for bit). The host's
+// The dense cache and the page pool take the split designs (their copies
+// follow the page table, and the pool takes the dense cache's plan, so a
+// paged lane computes what the dense one does, bit for bit). The host's
 // decode_plan (ops/decode_attention.py, a function of the shape) cuts each
 // (batch row, kv head) plane's key axis into `nsplit` splits of whole
 // chunks; the grid is
@@ -58,15 +58,23 @@
 //   positions come by TMA (a 3-D map over [L*B*Hkv, S, D]: rows past S
 //   fill zeros) into a 6-deep ring; int8 chunks come raw into a 4-deep ring
 //   (one bulk copy each of K and V) and the producer converts them to bf16
-//   (exact) into the swizzled tiles of a 4-deep ring; it also writes each
+//   (exact) into the swizzled tiles of a 4-deep ring. From a page pool, a
+//   bf16 chunk is 64 / g boxes of g = gcd(page, 64) rows through a map
+//   over [L*n_pages*Hkv, page, D], each box's page looked up in the table
+//   by its own producer lane; page % 8 == 0 puts every box on an 8-row
+//   (1024-byte) atom of the 128-byte swizzle, so the tile is laid out as
+//   the dense single box lays it, and a box past the table's end starts
+//   past the map's rows and fills zeros; an int8 chunk is one bulk copy a
+//   page run. The producer also writes each
 //   chunk's column states and scales beside it. S = Q.K^T is an SS wgmma;
 //   mask and k_scale apply on the accumulator registers; P (times v_scale,
 //   rounded to bf16) is the register A operand of the P.V wgmma. The qn
 //   extra columns, with their triangle, are one more tile through the same
 //   Q.K^T; their fp32 p goes through shared memory and meets v_new in fp32
 //   FMAs.
-// The page pool's chunk forms, and rows that are not whole 16-byte units (or
-// int8 scales of an S that is not a multiple of 4), keep the first designs:
+// Rows that are not whole 16-byte units (or int8 scales of an S that is not
+// a multiple of 4), and a bf16 pool's chunk forms over pages that are not a
+// multiple of 8 rows, keep the first designs:
 // - row kernel (Sq = 1, rep <= 8): one block per (kv head, batch row), four
 //   warps striding over cache positions, each warp keeping an fp32 online
 //   softmax for all rep query heads in registers; the warp states merge in
@@ -105,6 +113,7 @@ struct Args {
   long long vn_sb, vn_sg, vn_sq;
   const int* table;           // [B, P] physical pages (PAGED)
   int P, n_pages, page;
+  int box;                    // rows of a paged TMA box: gcd(page, 64)
   __nv_bfloat16* o;           // [B, qn, H, D] contiguous
   int B, H, Hkv, qn, S, D;
   long long layer;
@@ -1175,7 +1184,7 @@ __device__ inline int swz(int rows, int r, int col) {
   return (col / 64) * rows * 128 + r * 128 + ((((col % 64) / 8) ^ (r % 8)) << 4);
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool PAGED>
 __global__ void __launch_bounds__(MC_THREADS, 1)
     decode_split_mma_kernel(const __grid_constant__ CUtensorMap kmap,
                             const __grid_constant__ CUtensorMap vmap, const Args a) {
@@ -1219,16 +1228,21 @@ __global__ void __launch_bounds__(MC_THREADS, 1)
       live_chunks<MC_CS, MC_THREADS>(a, it, vflag, any_c, live, &n_live);
       const int nl = n_live;
       const int tiles = nl + (extra ? 1 : 0);   // the extra columns come last
-      // int8: cache chunk i's K and V rows (contiguous in the plane) by
-      // bulk copy into raw slot `slot`
+      // int8: cache chunk i's K and V rows (contiguous in the plane; PAGED:
+      // one run a page the chunk touches) by bulk copy into raw slot `slot`
       auto raw_issue = [&](int i, int slot) {
         const int j0 = live[i] * MC_CS, n = min(MC_CS, a.S - j0);
         unsigned char* dst = rawbuf + slot * 2 * MC_CS * DP;
-        const long long off = (it.plane * a.S + j0) * D;
         mbar_arrive_tx(&rawfull[slot], 2 * n * D);
-        bulk_load(dst, static_cast<const int8_t*>(a.k) + off, n * D, &rawfull[slot]);
-        bulk_load(dst + MC_CS * DP, static_cast<const int8_t*>(a.v) + off, n * D,
-                  &rawfull[slot]);
+        for (int j = j0; j < j0 + n;) {
+          const int len = PAGED ? min(a.page - j % a.page, j0 + n - j) : n;
+          const long long off = row_offset<PAGED>(a, it.b, it.g, j);
+          bulk_load(dst + (j - j0) * D, static_cast<const int8_t*>(a.k) + off, len * D,
+                    &rawfull[slot]);
+          bulk_load(dst + MC_CS * DP + (j - j0) * D, static_cast<const int8_t*>(a.v) + off,
+                    len * D, &rawfull[slot]);
+          j += len;
+        }
       };
       float ksn = 0.f, vsn = 0.f;   // the coming chunk's scales
       if (QUANT) {
@@ -1318,9 +1332,30 @@ __global__ void __launch_bounds__(MC_THREADS, 1)
         }
         if (ext || QUANT) fence_async_smem();   // the written tiles are wgmma operands
         __syncwarp();
-        if (lane == 0) {
-          if (!ext && !QUANT && pt == 0) {
-            mbar_arrive_tx(&full[s], Plan::STAGE_BYTES);
+        if (!ext && !QUANT && pt < 32) {
+          // bf16: the chunk by TMA, counted in full on the barrier. PAGED:
+          // lane k loads the chunk's box k of a.box rows from its page (a
+          // multiple of 8 rows, so each box lands on an 8-row swizzle atom
+          // and the tile is laid out as the dense single box lays it);
+          // a box past the table's end starts past the map's page rows
+          // and fills zeros, as the dense map's rows past S do
+          if (lane == 0) mbar_arrive_tx(&full[s], Plan::STAGE_BYTES);
+          __syncwarp();
+          if (PAGED && lane < MC_CS / a.box) {
+            const int j = j0 + lane * a.box;
+            int row = a.page, plane = 0;
+            if (j < a.S) {
+              const int phys = a.table[static_cast<long long>(it.b) * a.P + j / a.page];
+              row = j % a.page;
+              plane = static_cast<int>((a.layer * a.n_pages + phys) * a.Hkv + it.g);
+            }
+            const int dst = lane * a.box * 128;
+#pragma unroll
+            for (int c = 0; c < Plan::CHUNKS; ++c) {
+              tma_load_3d(kt + c * MC_CS * 128 + dst, &kmap, &full[s], c * 64, row, plane);
+              tma_load_3d(vt + c * MC_CS * 128 + dst, &vmap, &full[s], c * 64, row, plane);
+            }
+          } else if (!PAGED && lane == 0) {
 #pragma unroll
             for (int c = 0; c < Plan::CHUNKS; ++c) {
               tma_load_3d(kt + c * MC_CS * 128, &kmap, &full[s], c * 64, j0,
@@ -1328,9 +1363,9 @@ __global__ void __launch_bounds__(MC_THREADS, 1)
               tma_load_3d(vt + c * MC_CS * 128, &vmap, &full[s], c * 64, j0,
                           static_cast<int>(it.plane));
             }
-          } else {
-            mbar_arrive(&full[s]);
           }
+        } else if (lane == 0) {
+          mbar_arrive(&full[s]);
         }
       }
       used += tiles;
@@ -1602,26 +1637,30 @@ __global__ void __launch_bounds__(MC_THREADS, 1)
   }
 }
 
-// A 3-D map over the cache planes [L * B * Hkv, S, D] (bf16): boxes of 64
-// columns x 64 rows of one plane, 128-byte swizzle; rows past S and
-// columns past D fill zeros.
-inline bool plane_map(CUtensorMap* map, const void* base, long long planes, int S, int D) {
-  const uint64_t dims[3] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S),
+// A 3-D map over bf16 planes of `rows` rows of D (the dense cache's [L * B
+// * Hkv, S, D], or the pool's [L * n_pages * Hkv, page, D]): boxes of 64
+// columns x `box` rows of one plane, 128-byte swizzle; rows past `rows`
+// and columns past D fill zeros.
+inline bool plane_map(CUtensorMap* map, const void* base, long long planes, int rows, int D,
+                      int box) {
+  const uint64_t dims[3] = {static_cast<uint64_t>(D), static_cast<uint64_t>(rows),
                             static_cast<uint64_t>(planes)};
-  const uint64_t strides[2] = {2ULL * D, 2ULL * D * S};
-  const uint32_t box[3] = {64, static_cast<uint32_t>(MC_CS), 1};
-  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box);
+  const uint64_t strides[2] = {2ULL * D, 2ULL * D * rows};
+  const uint32_t boxes[3] = {64, static_cast<uint32_t>(box), 1};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, boxes);
 }
 
-template <typename T, int DP>
-cudaError_t launch_split_mma(const Args& a, long long planes, int grid, cudaStream_t stream) {
+template <typename T, int DP, bool PAGED>
+cudaError_t launch_split_mma(const Args& a, int grid, cudaStream_t stream) {
   CUtensorMap kmap, vmap;
   memset(&kmap, 0, sizeof(kmap));
   memset(&vmap, 0, sizeof(vmap));
-  if (sizeof(T) == 2 && (!plane_map(&kmap, a.k, planes, a.S, a.D) ||
-                         !plane_map(&vmap, a.v, planes, a.S, a.D)))
+  const long long planes = (a.layer + 1) * (PAGED ? a.n_pages : a.B) * a.Hkv;
+  const int rows = PAGED ? a.page : a.S, box = PAGED ? a.box : MC_CS;
+  if (sizeof(T) == 2 && (box % 8 != 0 || !plane_map(&kmap, a.k, planes, rows, a.D, box) ||
+                         !plane_map(&vmap, a.v, planes, rows, a.D, box)))
     return cudaErrorInvalidValue;
-  auto kern = decode_split_mma_kernel<T, DP>;
+  auto kern = decode_split_mma_kernel<T, DP, PAGED>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          MmaPlan<DP, sizeof(T) == 1>::SMEM);
   if (err != cudaSuccess) return err;
@@ -1648,18 +1687,20 @@ cudaError_t launch_split_rows_rep(const Args& a, int grid, cudaStream_t stream) 
   return launch_split_rows<T, 8, PAGED>(a, grid, stream);
 }
 
-// The split designs: the row kernel (Sq = 1, rep <= 8; dense or paged) or
-// the mma kernel (dense).
+// The split designs, dense or paged: the row kernel (Sq = 1, rep <= 8) or
+// the mma kernel.
 template <typename T>
 cudaError_t launch_split(const Args& a, int grid, cudaStream_t stream) {
   const int rep = a.H / a.Hkv;
-  const long long planes = static_cast<long long>(a.layer + 1) * a.B * a.Hkv;
+  const bool paged = a.table != nullptr;
   if (a.qn == 1 && rep <= MAXREP)
-    return a.table != nullptr ? launch_split_rows_rep<T, true>(a, grid, stream)
-                              : launch_split_rows_rep<T, false>(a, grid, stream);
-  if (a.table != nullptr) return cudaErrorInvalidValue;
-  return a.D <= 64 ? launch_split_mma<T, 64>(a, planes, grid, stream)
-                   : launch_split_mma<T, 128>(a, planes, grid, stream);
+    return paged ? launch_split_rows_rep<T, true>(a, grid, stream)
+                 : launch_split_rows_rep<T, false>(a, grid, stream);
+  if (a.D <= 64)
+    return paged ? launch_split_mma<T, 64, true>(a, grid, stream)
+                 : launch_split_mma<T, 64, false>(a, grid, stream);
+  return paged ? launch_split_mma<T, 128, true>(a, grid, stream)
+               : launch_split_mma<T, 128, false>(a, grid, stream);
 }
 
 template <typename T, bool PAGED>
@@ -1689,9 +1730,10 @@ cudaError_t launch_first(const Args& a, cudaStream_t stream) {
 // dense stacked cache [L, B, Hkv, S, D]; else the pool [L, n_pages, Hkv,
 // page, D] read through table [B, P] (S = P * page). nsplit > 0: the split
 // designs (decode_plan: nsplit splits of cps chunks, `grid` blocks, fp32
-// workspaces ws_o / ws_ml, zeroed tickets cnt [B * Hkv]; the paged pool at
-// Sq = 1, rep <= 8 only); nsplit == 0: the first designs (the paged chunk
-// forms, rows that are not whole 16-byte units). Checks of shapes, types and limits (qn <= 32, rep *
+// workspaces ws_o / ws_ml, zeroed tickets cnt [B * Hkv]; a bf16 pool's chunk
+// forms need page % 8 == 0); nsplit == 0: the first designs (rows that are
+// not whole 16-byte units, a bf16 pool's pages that break the box rule).
+// Checks of shapes, types and limits (qn <= 32, rep *
 // qn <= 64, D in {16, 32, 64, 128} for the chunk forms, D <= 128) are the
 // wrapper's.
 extern "C" int emu_decode_attention_fwd(
@@ -1726,6 +1768,8 @@ extern "C" int emu_decode_attention_fwd(
   a.P = P;
   a.n_pages = n_pages;
   a.page = page;
+  a.box = 64;
+  while (page > 0 && a.box > 1 && page % a.box) a.box /= 2;   // gcd(page, 64)
   a.o = static_cast<__nv_bfloat16*>(out);
   a.B = B;
   a.H = H;

@@ -30,15 +30,30 @@
 //   dx_i = g_i * rsigma - y_i * rsigma^3 * mean_j(g_j y_j) + dy_ext_i
 //   dw_i = sum over rows of dh_i * y_i * rsigma
 // (dy_ext, the cotangent of the residual stream y, only in the add form).
-// Bytes bound it too: it reads y, dh and dy_ext and writes dx. One block of
-// 256 threads owns a run of consecutive rows; each thread keeps the dw sums
-// of its own columns in shared memory over the block's rows and stores them
-// as that block's fp32 partial row. A second kernel adds the partial rows
-// in block order, so dw is the same bits on every run (no atomics).
+// Bytes bound it too: it reads y, dh and dy_ext and writes dx. Its row
+// kernel is a persistent grid of at most one 256-thread block an SM, each
+// walking a contiguous run of rows a step (256 / tpr rows) at a time, with
+// the forward's threads a row. Thread 0 streams each step's rows of y, dh
+// and dy_ext (one contiguous run of each) into a 2-step ring by
+// cp.async.bulk, so the next step is in flight while this one reduces; a
+// thread holds its vectors of the step's row in registers from one 16-byte
+// shared load each, reduces mean(g.y) through shuffles and one shared step,
+// and writes dx as 16-byte stores: one pass over each row. Its columns are
+// the same on every row, so its w (read once, as stored) and its dw sums
+// stay in registers for the whole run; the block's rows' sums meet in
+// shared memory as its one fp32 partial row. A second kernel adds the
+// partial rows in block order, so dw is the same bits on every run (no
+// atomics), and rounds them once to w's dtype. The plan is the host's
+// (ops/fused_norm.py:norm_bwd_plan). A width that is not a multiple of 8, a
+// base that is not 16-byte aligned or a row longer than the forward's
+// register plan holds takes a scalar kernel (one row at a time, two
+// passes, the dw sums in shared memory).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -200,6 +215,162 @@ cudaError_t launch_fwd(const void* x, const void* r, const void* w, void* y, voi
   return cudaGetLastError();
 }
 
+// ---- the backward --------------------------------------------------------
+
+constexpr int BWD_STAGES = 4;   // the most ring stages the kernel takes (its plan gives 2)
+
+// The eight bf16 of a 16-byte unit as floats.
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 e = __bfloat1622float2(p[k]);
+    f[2 * k] = e.x;
+    f[2 * k + 1] = e.y;
+  }
+}
+
+// The row kernel: a persistent grid, each block walking a contiguous run of
+// rows in steps of THREADS / tpr rows, tpr threads a row, each thread
+// holding the row's vectors tid, tid + tpr, ... (NV of them at most). A
+// thread's columns are the same on every row, so its w (fp32, read once)
+// and its dw sums stay in registers for the whole run. Thread 0 streams
+// each step's rows of y, dh and dy_ext (one contiguous run each) into a
+// `stages`-deep ring by cp.async.bulk, so the next steps are in flight
+// while this one reduces. (Loading the next step into registers instead
+// measured as fast at W = 5120 and spilled at 6656: PERF.md, PR 12.)
+template <typename WT, int NV>
+__global__ void __launch_bounds__(THREADS, 1) add_rmsnorm_bwd_rows_kernel(
+    const __nv_bfloat16* __restrict__ y, const WT* __restrict__ w,
+    const float* __restrict__ rsigma, const __nv_bfloat16* __restrict__ dh,
+    const __nv_bfloat16* __restrict__ dy_ext, __nv_bfloat16* __restrict__ dx,
+    float* __restrict__ dw_part, int M, int W, int tpr, int rows_per_block,
+    int stages) {
+  extern __shared__ __align__(16) unsigned char ring[];  // [stages][y, dh, dy][step rows][W]
+  __shared__ uint64_t full[BWD_STAGES];
+  __shared__ float partial[THREADS / 32];
+  const int nv = W / 8, step = THREADS / tpr, wpr = tpr / 32;
+  const int rib = threadIdx.x / tpr, tid = threadIdx.x % tpr;
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(M, r0 + rows_per_block);
+  const int steps = (r1 - r0 + step - 1) / step;
+  const bool add = dy_ext != nullptr;
+  const uint32_t run = static_cast<uint32_t>(step) * W * 2;   // a slot's bytes
+
+  auto issue = [&](int k) {   // thread 0: step k's rows into stage k % stages
+    const int s = k % stages, row = r0 + k * step;
+    const uint32_t bytes = static_cast<uint32_t>(min(step, r1 - row)) * W * 2;
+    unsigned char* st = ring + static_cast<size_t>(s) * 3 * run;
+    const long long off = static_cast<long long>(row) * W;
+    mbar_arrive_tx(&full[s], (add ? 3 : 2) * bytes);
+    bulk_load(st, y + off, bytes, &full[s]);
+    bulk_load(st + run, dh + off, bytes, &full[s]);
+    if (add) bulk_load(st + 2 * run, dy_ext + off, bytes, &full[s]);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
+    mbar_fence_init();
+    for (int k = 0; k < min(steps, stages); ++k) issue(k);
+  }
+  __syncthreads();
+
+  float wf[NV][8], dw[NV][8];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int c = v * tpr + tid;
+    if (c < nv) load_w8(w, c * 8, wf[v]);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dw[v][e] = 0.f;
+  }
+
+  for (int k = 0; k < steps; ++k) {
+    const int row = r0 + k * step + rib;
+    const bool live = row < r1;
+    const float rs = live ? rsigma[row] : 0.f;
+    const int s = k % stages;
+    mbar_wait(&full[s], (k / stages) & 1);
+    const unsigned char* st = ring + static_cast<size_t>(s) * 3 * run + rib * W * 2;
+    uint4 yv[NV], dv[NV], ev[NV];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int c = v * tpr + tid;
+      if (live && c < nv) {
+        yv[v] = *reinterpret_cast<const uint4*>(st + c * 16);
+        dv[v] = *reinterpret_cast<const uint4*>(st + run + c * 16);
+        if (add) ev[v] = *reinterpret_cast<const uint4*>(st + 2 * run + c * 16);
+      }
+    }
+    float dot = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int c = v * tpr + tid;
+      if (live && c < nv) {
+        float yf[8], df[8];
+        unpack8(yv[v], yf);
+        unpack8(dv[v], df);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dot += df[e] * wf[v][e] * yf[e];
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    if (wpr > 1) {
+      if (threadIdx.x % 32 == 0) partial[threadIdx.x / 32] = dot;
+      __syncthreads();
+      dot = 0.f;
+      for (int i = 0; i < wpr; ++i) dot += partial[rib * wpr + i];
+    }
+    const float mean = dot / W, rs3 = rs * rs * rs;
+    const long long base = static_cast<long long>(row) * W;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int c = v * tpr + tid;
+      if (live && c < nv) {
+        float yf[8], df[8], ef[8];
+        unpack8(yv[v], yf);
+        unpack8(dv[v], df);
+        if (add) unpack8(ev[v], ef);
+        uint4 out;
+        __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+        for (int e = 0; e < 8; e += 2) {
+          float a = df[e] * wf[v][e] * rs - yf[e] * rs3 * mean;
+          float b = df[e + 1] * wf[v][e + 1] * rs - yf[e + 1] * rs3 * mean;
+          if (add) {
+            a += ef[e];
+            b += ef[e + 1];
+          }
+          op[e / 2] = __floats2bfloat162_rn(a, b);
+          dw[v][e] += df[e] * yf[e] * rs;
+          dw[v][e + 1] += df[e + 1] * yf[e + 1] * rs;
+        }
+        *reinterpret_cast<uint4*>(dx + base + c * 8) = out;
+      }
+    }
+    __syncthreads();   // stage s and `partial` are read out
+    if (threadIdx.x == 0 && k + stages < steps) issue(k + stages);
+  }
+
+  // the block's partial row: the step's rows' sums added in row order
+  // through shared memory (the ring is idle: every copy has landed)
+  float* acc = reinterpret_cast<float*>(ring);   // [step][W]
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int c = v * tpr + tid;
+    if (c < nv) {
+      float4* dst = reinterpret_cast<float4*>(acc + rib * W + c * 8);
+      dst[0] = make_float4(dw[v][0], dw[v][1], dw[v][2], dw[v][3]);
+      dst[1] = make_float4(dw[v][4], dw[v][5], dw[v][6], dw[v][7]);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < W; i += THREADS) {
+    float s = 0.f;
+    for (int r = 0; r < step; ++r) s += acc[r * W + i];
+    dw_part[static_cast<long long>(blockIdx.x) * W + i] = s;
+  }
+}
+
 __device__ inline float block_sum(float v, float* partial) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -212,8 +383,12 @@ __device__ inline float block_sum(float v, float* partial) {
   return total;
 }
 
-__global__ void __launch_bounds__(THREADS) add_rmsnorm_bwd_kernel(
-    const __nv_bfloat16* __restrict__ y, const __nv_bfloat16* __restrict__ w,
+// The scalar kernel: any W and alignment; one block a run of rows, one row
+// at a time, two passes over it; each thread keeps the dw sums of its own
+// columns in shared memory.
+template <typename WT>
+__global__ void __launch_bounds__(THREADS) add_rmsnorm_bwd_any_kernel(
+    const __nv_bfloat16* __restrict__ y, const WT* __restrict__ w,
     const float* __restrict__ rsigma, const __nv_bfloat16* __restrict__ dh,
     const __nv_bfloat16* __restrict__ dy_ext, __nv_bfloat16* __restrict__ dx,
     float* __restrict__ dw_part, int M, int W, int rows_per_block) {
@@ -227,14 +402,13 @@ __global__ void __launch_bounds__(THREADS) add_rmsnorm_bwd_kernel(
     const float rs = rsigma[row];
     float dot = 0.f;
     for (int i = threadIdx.x; i < W; i += THREADS)
-      dot += __bfloat162float(dh[base + i]) * __bfloat162float(w[i]) *
-             __bfloat162float(y[base + i]);
+      dot += __bfloat162float(dh[base + i]) * load_w(w, i) * __bfloat162float(y[base + i]);
     const float mean = block_sum(dot, partial) / W;
     const float rs3 = rs * rs * rs;
     for (int i = threadIdx.x; i < W; i += THREADS) {
       const float yf = __bfloat162float(y[base + i]);
       const float d = __bfloat162float(dh[base + i]);
-      float v = d * __bfloat162float(w[i]) * rs - yf * rs3 * mean;
+      float v = d * load_w(w, i) * rs - yf * rs3 * mean;
       if (dy_ext != nullptr) v += __bfloat162float(dy_ext[base + i]);
       dx[base + i] = __float2bfloat16(v);
       dw_acc[i] += d * yf * rs;
@@ -244,37 +418,114 @@ __global__ void __launch_bounds__(THREADS) add_rmsnorm_bwd_kernel(
     dw_part[static_cast<long long>(blockIdx.x) * W + i] = dw_acc[i];
 }
 
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+// dw = the partial rows summed in block order (the same bits on every run),
+// in w's dtype; the loads of 16 partial rows in flight at a time.
+template <typename WT>
 __global__ void dw_reduce_kernel(const float* __restrict__ dw_part,
-                                 float* __restrict__ dw, int n_part, int W) {
+                                 WT* __restrict__ dw, int n_part, int W) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= W) return;
   float s = 0.f;
+#pragma unroll 16
   for (int p = 0; p < n_part; ++p) s += dw_part[static_cast<long long>(p) * W + i];
-  dw[i] = s;
+  store(dw + i, s);
+}
+
+// Sets a kernel's dynamic shared-memory limit once it needs more than it
+// had (per instantiation, once per process in practice).
+template <typename K>
+cudaError_t allow_smem(K kern, size_t bytes, size_t& configured) {
+  if (bytes <= configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err == cudaSuccess) configured = bytes;
+  return err;
+}
+
+template <typename WT, int NV>
+cudaError_t launch_bwd_rows(const __nv_bfloat16* y, const WT* w, const float* rs,
+                            const __nv_bfloat16* dh, const __nv_bfloat16* dy,
+                            __nv_bfloat16* dx, float* part, int M, int W, int tpr,
+                            int rows_per_block, int grid, int stages, cudaStream_t st) {
+  static size_t configured = 0;
+  const size_t bytes = static_cast<size_t>(stages) * 3 * (THREADS / tpr) * W * 2;
+  const cudaError_t err = allow_smem(add_rmsnorm_bwd_rows_kernel<WT, NV>, bytes, configured);
+  if (err != cudaSuccess) return err;
+  add_rmsnorm_bwd_rows_kernel<WT, NV><<<grid, THREADS, bytes, st>>>(
+      y, w, rs, dh, dy, dx, part, M, W, tpr, rows_per_block, stages);
+  return cudaGetLastError();
+}
+
+template <typename WT>
+cudaError_t launch_bwd(const void* y, const void* w, const void* rsigma, const void* dh,
+                       const void* dy, void* dx, void* part, int M, int W, int tpr,
+                       int rows_per_block, int grid, int stages, cudaStream_t st) {
+  const auto* yp = static_cast<const __nv_bfloat16*>(y);
+  const auto* wp = static_cast<const WT*>(w);
+  const auto* rp = static_cast<const float*>(rsigma);
+  const auto* dp = static_cast<const __nv_bfloat16*>(dh);
+  const auto* ep = static_cast<const __nv_bfloat16*>(dy);
+  auto* xp = static_cast<__nv_bfloat16*>(dx);
+  auto* pp = static_cast<float*>(part);
+  if (tpr == 0) {
+    static size_t configured = 0;
+    const size_t bytes = static_cast<size_t>(W) * 4;
+    const cudaError_t err = allow_smem(add_rmsnorm_bwd_any_kernel<WT>, bytes, configured);
+    if (err != cudaSuccess) return err;
+    add_rmsnorm_bwd_any_kernel<WT><<<grid, THREADS, bytes, st>>>(yp, wp, rp, dp, ep, xp, pp,
+                                                                 M, W, rows_per_block);
+    return cudaGetLastError();
+  }
+  const auto a16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const int nv = (W / 8 + tpr - 1) / tpr;
+  if (W % 8 || tpr < 32 || tpr > THREADS || (tpr & (tpr - 1)) || nv > VMAX ||
+      stages < 1 || stages > BWD_STAGES || !a16(y) || !a16(w) || !a16(dh) || !a16(dy) || !a16(dx))
+    return cudaErrorInvalidValue;   // the plan sends such calls to the scalar kernel
+  switch (nv) {
+    case 1: return launch_bwd_rows<WT, 1>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, stages, st);
+    case 2: return launch_bwd_rows<WT, 2>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, stages, st);
+    case 3: return launch_bwd_rows<WT, 3>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, stages, st);
+    case 4: return launch_bwd_rows<WT, 4>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, stages, st);
+    case 5: return launch_bwd_rows<WT, 5>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, stages, st);
+    case 6: return launch_bwd_rows<WT, 6>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, stages, st);
+    case 7: return launch_bwd_rows<WT, 7>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, stages, st);
+    default: return launch_bwd_rows<WT, 8>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, stages, st);
+  }
 }
 
 }  // namespace
 
+// The backward over M rows of width W: y, dh, dy_ext (or null) [M, W] bf16;
+// w and dw [W], fp32 when w_fp32 else bf16; rsigma [M] fp32; dx [M, W]
+// bf16; dw_part [grid, W] fp32 (one partial row a block). The plan
+// (ops/fused_norm.py:norm_bwd_plan): tpr threads a row (0: the scalar
+// kernel), rows_per_block rows a block (whole steps of 256 / tpr rows),
+// `grid` blocks, a `stages`-deep ring. Launches on `stream`; returns
+// cudaGetLastError().
 extern "C" int emu_add_rmsnorm_bwd(const void* y, const void* w,
                                    const void* rsigma, const void* dh,
                                    const void* dy_ext, void* dx, void* dw_part,
-                                   void* dw, int M, int W, int rows_per_block,
+                                   void* dw, int M, int W, int w_fp32, int tpr,
+                                   int rows_per_block, int grid, int stages,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_part = (M + rows_per_block - 1) / rows_per_block;
-  const int smem = W * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      add_rmsnorm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  add_rmsnorm_bwd_kernel<<<n_part, THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(y), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(rsigma), static_cast<const __nv_bfloat16*>(dh),
-      static_cast<const __nv_bfloat16*>(dy_ext), static_cast<__nv_bfloat16*>(dx),
-      static_cast<float*>(dw_part), M, W, rows_per_block);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dw_reduce_kernel<<<(W + 255) / 256, 256, 0, st>>>(
-      static_cast<const float*>(dw_part), static_cast<float*>(dw), n_part, W);
+  if (M > 0) {
+    const cudaError_t err =
+        w_fp32 ? launch_bwd<float>(y, w, rsigma, dh, dy_ext, dx, dw_part, M, W, tpr,
+                                   rows_per_block, grid, stages, st)
+               : launch_bwd<__nv_bfloat16>(y, w, rsigma, dh, dy_ext, dx, dw_part, M, W, tpr,
+                                           rows_per_block, grid, stages, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const auto* part = static_cast<const float*>(dw_part);
+  const int n_part = M > 0 ? grid : 0, blocks = (W + 127) / 128;
+  if (w_fp32)
+    dw_reduce_kernel<<<blocks, 128, 0, st>>>(part, static_cast<float*>(dw), n_part, W);
+  else
+    dw_reduce_kernel<<<blocks, 128, 0, st>>>(part, static_cast<__nv_bfloat16*>(dw), n_part, W);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,10 +28,11 @@ columns' probabilities and values stay fp32.
 
 The kernel splits each (batch row, kv head) plane's key axis over blocks;
 `decode_plan`, a function of the shape alone, picks the split and the grid
-(at most one wave of co-resident blocks). The page pool's Sq = 1 forms take
-the same row kernel through the page table (so a paged lane matches the
-dense one bit for bit); its chunk forms, and rows that are not whole
-16-byte units, keep the first designs.
+(at most one wave of co-resident blocks). The page pool takes the same
+split kernels through the page table, the row kernel at Sq = 1 and the mma
+kernel for its chunk forms (so a paged lane matches the dense one bit for
+bit); rows that are not whole 16-byte units, and a bf16 pool's chunk forms
+over pages that are not a multiple of 8 rows, keep the first designs.
 """
 
 from __future__ import annotations
@@ -67,16 +68,20 @@ def _rows_smem(d: int, itemsize: int) -> int:
 @functools.lru_cache(maxsize=256)
 def decode_plan(b: int, hkv: int, rep: int, qn: int, s: int, d: int,
                 itemsize: int, sms: int = _cuda.H100_SMS,
-                aligned: bool = True) -> dict:
-    """How kernel D runs over a dense cache of B rows, Hkv kv heads of
-    rep query heads, qn queries, S positions of width D (itemsize 2: bf16,
-    1: int8): a function of the shape (and of the operands' 16-byte
-    alignment) alone.
+                aligned: bool = True, page: int = 0) -> dict:
+    """How kernel D runs over a cache of B rows, Hkv kv heads of rep query
+    heads, qn queries, S positions of width D (itemsize 2: bf16, 1: int8),
+    dense (page 0) or a page pool of `page`-row pages read through the
+    table (S = P * page): a function of the shape (and of the operands'
+    16-byte alignment) alone. A pool takes the dense cache's plan.
 
     - kernel: "rows" (Sq = 1, rep <= 8: the split row kernel), "mma" (the
       chunk form on the tensor cores), or "first" (rows that are not whole
-      16-byte units, int8 scales of an S that is not a multiple of 4, or
-      unaligned operands: the first designs, one block per plane);
+      16-byte units, int8 scales of an S that is not a multiple of 4,
+      unaligned operands, or a bf16 pool's chunk form whose pages are not
+      a multiple of 8 rows, the mma kernel's TMA boxes being gcd(page, 64)
+      rows on 8-row swizzle atoms: the first designs, one block per
+      plane);
     - chunk: cache positions per chunk; splits: how many splits cut each
       plane's key axis, chunks_per_split chunks each (the last may hold
       fewer, none is empty, at most MAX_SPLIT_CHUNKS);
@@ -90,7 +95,8 @@ def decode_plan(b: int, hkv: int, rep: int, qn: int, s: int, d: int,
     H100 against about 1.3 us a chunk with every block streaming)."""
     rows = qn == 1 and rep <= 8
     if (not aligned or (rows and ((d * itemsize) % 16
-                                  or (itemsize == 1 and s % 4)))):
+                                  or (itemsize == 1 and s % 4)))
+            or (page and not rows and itemsize == 2 and page % 8)):
         return {"kernel": "first", "chunk": 0, "splits": 1,
                 "chunks_per_split": 0, "items": b * hkv, "grid": b * hkv,
                 "blocks_per_sm": 0}
@@ -296,10 +302,9 @@ def _launch(q, k, v, kv_valid, k_scale, v_scale, scale, layer, k_new, v_new,
     aligned = all(t.data_ptr() % 16 == 0 for t in (k, v, k_scale, v_scale)
                   if t is not None)
     plan = decode_plan(b, hkv, rep, qn, s, d, k.element_size(),
-                       _cuda.sm_count(q.device), aligned)
+                       _cuda.sm_count(q.device), aligned,
+                       0 if table is None else page)
     kernel = plan["kernel"]
-    if table is not None and kernel == "mma":
-        kernel = "first"      # the page pool's chunk forms keep it
     if kernel != "first":
         nsplit, cps, grid = (plan["splits"], plan["chunks_per_split"],
                              plan["grid"])
@@ -389,6 +394,6 @@ def paged_decode_attention(q, k, v, page_table, kv_valid, *, scale: float,
 paged_decode_attention.launches = 0
 paged_decode_attention.forms = {"bf16": 0, "int8": 0, "chunk_bf16": 0,
                                 "chunk_int8": 0}
-# the Sq = 1 forms take the split row kernel through the page table; the
-# chunk forms keep the first design
+# launches on the page pool by `decode_plan`'s kernel (the split kernels
+# read through the page table)
 paged_decode_attention.plans = {"rows": 0, "mma": 0, "first": 0}

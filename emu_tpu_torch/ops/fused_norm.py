@@ -27,6 +27,8 @@ launch needs.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from emu_tpu_torch.ops import _cuda
@@ -96,11 +98,55 @@ def rmsnorm_bwd_reference(y, w, rsigma, dh, dy_ext=None):
     return dx.to(y.dtype).reshape(y.shape), dw.to(w.dtype)
 
 
+# Kernel C's backward (csrc/rmsnorm.cu): threads a block, the most 16-byte
+# vectors a thread holds of a row (the forward's VMAX), the ring's depth in
+# steps (3 measured 4% slower than 2 at 2048 x 5120: PERF.md, PR 12)
+NORM_THREADS, NORM_VMAX, NORM_STAGES = 256, 8, 2
+
+
+@functools.lru_cache(maxsize=256)
+def norm_bwd_plan(m: int, w: int, sms: int = _cuda.H100_SMS,
+                  aligned: bool = True) -> dict:
+    """How kernel C's backward runs over m rows of width w: a function of
+    the shape (and of the operands' 16-byte alignment) alone.
+
+    - kernel: "rows" where the forward takes its row kernel (w % 8 == 0,
+      w <= 8 * NORM_VMAX * NORM_THREADS, aligned operands), else "any" (the
+      scalar kernel: one row at a time, two passes);
+    - tpr: threads a row, the forward's (the fewest powers of two from 32
+      that hold the row in NORM_VMAX vectors a thread; 0 for "any");
+      rows_step = NORM_THREADS // tpr rows a block takes at once;
+    - stages: the ring's depth in steps of y, dh and dy_ext rows
+      (NORM_STAGES; one block's shared memory holds two steps of the
+      widest row); smem its bytes;
+    - grid: at most one block an SM, each a contiguous run of
+      rows_per_block rows (whole steps), none empty; parts: the fp32
+      partial rows of dw, one a block, summed in block order."""
+    if w % 8 or w > 8 * NORM_VMAX * NORM_THREADS or not aligned:
+        per_block = max(1, -(-m // 256))
+        grid = -(-m // per_block)
+        return {"kernel": "any", "tpr": 0, "rows_step": 1, "stages": 0,
+                "smem": 4 * w, "rows_per_block": per_block, "grid": grid,
+                "parts": grid}
+    tpr = 32
+    while tpr * NORM_VMAX * 8 < w:
+        tpr *= 2
+    step = NORM_THREADS // tpr
+    steps = -(-m // step)
+    per_block = -(-steps // min(steps, sms)) if steps else 0
+    grid = -(-steps // per_block) if steps else 0
+    return {"kernel": "rows", "tpr": tpr, "rows_step": step,
+            "stages": NORM_STAGES, "smem": NORM_STAGES * 3 * step * w * 2,
+            "rows_per_block": per_block * step, "grid": grid, "parts": grid}
+
+
 def rmsnorm_bwd(y, w, rsigma, dh, dy_ext=None):
     """(dx, dw) of h = rmsnorm(w, y) for the cotangents dh of h and, in the
     add form, dy_ext of y; y [..., W] is the forward's y (x without the
-    add), rsigma its [rows] fp32 output. dw is summed from per-block fp32
-    partials in a fixed order: the same bits on every run."""
+    add), rsigma its [rows] fp32 output. w is read in its stored dtype (bf16
+    or fp32; another float dtype is widened to fp32), as the forward reads
+    it. dw is summed from per-block fp32 partials in a fixed order (the same
+    bits on every run) and rounded once to w's dtype."""
     if _cuda.on_cpu(y, "rmsnorm_bwd"):
         return rmsnorm_bwd_reference(y, w, rsigma, dh, dy_ext)
     _cuda.refuse_grad("rmsnorm_bwd", y, w, dh, dy_ext)
@@ -117,22 +163,26 @@ def rmsnorm_bwd(y, w, rsigma, dh, dy_ext=None):
     m = yf.shape[0]
     _cuda.require(rsigma.numel() == m and rsigma.dtype == torch.float32,
                   "rmsnorm_bwd: rsigma must be fp32 [rows]")
+    wk = (w if w.dtype in (bf, torch.float32) else w.float()).contiguous()
     dhf = dh.reshape(-1, wd).contiguous()
     dyf = None if dy_ext is None else dy_ext.reshape(-1, wd).contiguous()
-    rows_per_block = max(1, -(-m // 256))
-    n_part = -(-m // rows_per_block)
     dx = torch.empty_like(yf)
-    dw_part = torch.empty(n_part, wd, device=y.device, dtype=torch.float32)
-    dw = torch.empty(wd, device=y.device, dtype=torch.float32)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (yf, wk, dhf, dyf, dx)
+                  if t is not None)
+    plan = norm_bwd_plan(m, wd, _cuda.sm_count(y.device), aligned)
+    dw_part = torch.empty(plan["parts"], wd, device=y.device,
+                          dtype=torch.float32)
+    dw = torch.empty(wd, device=y.device, dtype=wk.dtype)
     with _cuda.device_of(y):
         status = _cuda.library().emu_add_rmsnorm_bwd(
-            yf.data_ptr(), w.to(bf).contiguous().data_ptr(),
-            rsigma.contiguous().data_ptr(), dhf.data_ptr(), _cuda.ptr(dyf),
-            dx.data_ptr(), dw_part.data_ptr(), dw.data_ptr(), m, wd,
-            rows_per_block, _cuda.stream(y))
+            yf.data_ptr(), wk.data_ptr(), rsigma.contiguous().data_ptr(),
+            dhf.data_ptr(), _cuda.ptr(dyf), dx.data_ptr(), dw_part.data_ptr(),
+            dw.data_ptr(), m, wd, int(wk.dtype == torch.float32), plan["tpr"],
+            plan["rows_per_block"], plan["grid"], plan["stages"],
+            _cuda.stream(y))
     _cuda.check(status, "rmsnorm_bwd")
     rmsnorm_bwd.launches += 1
-    return dx.reshape(y.shape), dw.to(w.dtype)
+    return dx.reshape(y.shape), dw.to(w.dtype)   # a copy only for a widened w
 
 
 rmsnorm_bwd.launches = 0

@@ -13,7 +13,7 @@ warm-up ones) and the card's time alone from torch.profiler:
   Sq = 1 over a 60-layer cache of 1024 slots (rows of 600-950 tokens, and
   the continuous engine's 16-264), the chunk forms (the 32-query mixed
   step in int8 and bf16, the B 1 speculative verify of 5 queries), the
-  paged forms (pages of 16);
+  paged forms (pages of 16: the decode step and the 32-query chunk form);
 - G at 1, 5 and 8 rows of LLaMA-33B (D 6656, F 17920, hidden blocks of
   256).
 
@@ -152,8 +152,6 @@ def kernels(measure, randn, g) -> None:
     page, n_pages = 16, 8 * (S // 16) + 16
     table = torch.randperm(n_pages, device=dev, generator=g)[
         :8 * (S // page)].reshape(8, S // page).int()
-    q = randn(8, 1, H, 128)
-    kn, vn = extra(8, 1)
     for quant in (False, True):
         pool = (2, n_pages, H, page, 128)
         if quant:
@@ -163,11 +161,16 @@ def kernels(measure, randn, g) -> None:
             pvs = torch.rand(2, 8, H, S, device=dev, generator=g) * 0.02
         else:
             kp, vp, pks, pvs = randn(*pool), randn(*pool), None, None
-        kw = dict(scale=128 ** -0.5, k_scale=pks, v_scale=pvs, layer=1,
-                  k_new=kn, v_new=vn)
-        measure(f"paged_{'int8' if quant else 'bf16'}_b8_52x1024x128_p16",
-                lambda: D.paged_decode_attention(q, kp, vp, table, valid8,
-                                                 **kw))
+        tag = "int8" if quant else "bf16"
+        for qn in (1, 32):
+            q = randn(8, qn, H, 128)
+            kn, vn = extra(8, qn)
+            kw = dict(scale=128 ** -0.5, k_scale=pks, v_scale=pvs, layer=1,
+                      k_new=kn, v_new=vn)
+            measure(f"paged_{tag}_b8_52x1024x128_p16" if qn == 1 else
+                    f"paged_chunk_{tag}_b8_q32_52x1024x128_p16",
+                    lambda: D.paged_decode_attention(q, kp, vp, table,
+                                                     valid8, **kw))
         del kp, vp
     torch.cuda.empty_cache()
 

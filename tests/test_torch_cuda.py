@@ -675,13 +675,15 @@ def test_decode_attention_split_plans(gen, b, h, hkv, s, d, qn, quant, extra,
                                                **kw))
 
 
+@pytest.mark.parametrize("qn", [1, 5, 32])
 @pytest.mark.parametrize("quant", [False, True])
-def test_paged_decode_matches_dense_bit_for_bit(gen, quant):
-    """The page pool's decode step takes the split row kernel through the
-    page table: the same cache laid out in shuffled pages of 16 gives the
-    dense cache's output bit for bit (the paged lane's contract with the
-    dense engine), over every plan split of a 128-slot cache."""
-    n_layers, b, hkv, d, page, per_row = 2, 3, 52, 128, 16, 8
+def test_paged_decode_matches_dense_bit_for_bit(gen, quant, qn):
+    """The page pool takes the split kernels through the page table, the row
+    kernel at Sq = 1 and the mma kernel for the chunk forms: the same cache
+    laid out in shuffled pages of 16 gives the dense cache's output bit for
+    bit (the paged lane's contract with the dense engine), over every plan
+    split of a 144-slot cache whose last chunk runs past the table's end."""
+    n_layers, b, hkv, d, page, per_row = 2, 3, 52, 128, 16, 9
     s = page * per_row
     if quant:
         kd, ks = _int8_planes(gen, n_layers, b, hkv, s, d)
@@ -701,18 +703,19 @@ def test_paged_decode_matches_dense_bit_for_bit(gen, quant):
             for p in range(per_row):
                 pool[:, table[r, p]] = dense[:, r, :, p * page:(p + 1) * page]
         pools.append(pool)
-    q = randn(gen, b, 1, hkv, d)
-    kn, vn = randn(gen, b, hkv, 1, d), randn(gen, b, hkv, 1, d)
+    q = randn(gen, b, qn, hkv, d)
+    kn, vn = randn(gen, b, hkv, qn, d), randn(gen, b, hkv, qn, d)
     valid = torch.arange(s, device="cuda")[None] < torch.tensor(
-        [64, 70, 127], device="cuda")[:, None]
+        [64, 70, 143], device="cuda")[:, None]
     kw = dict(scale=d ** -0.5, layer=1, k_new=kn, v_new=vn)
     dense_out = D.decode_attention(q, kd, vd, valid, ks, vs, **kw)
-    before = D.paged_decode_attention.plans["rows"]
+    plan = "rows" if qn == 1 else "mma"
+    before = D.paged_decode_attention.plans[plan]
     paged_out = launched(D.paged_decode_attention,
                          lambda: D.paged_decode_attention(
                              q, pools[0], pools[1], table, valid, k_scale=ks,
                              v_scale=vs, **kw))
-    assert D.paged_decode_attention.plans["rows"] == before + 1
+    assert D.paged_decode_attention.plans[plan] == before + 1
     assert torch.equal(paged_out, dense_out)
 
 
@@ -805,19 +808,33 @@ def test_attention_backward_kernels(gen, b, h, hkv, sq, skv, d, causal):
         assert_close_blocks(leaf.grad, r)
 
 
-@pytest.mark.parametrize("rows,w,add", [(37, 5120, True), (300, 1000, False)])
-def test_rmsnorm_backward_kernel(gen, rows, w, add):
-    """The norm backward against its twin; dw the same bits twice."""
+@pytest.mark.parametrize("rows,w,add,w_fp32,kernel", [
+    (37, 5120, True, False, "rows"),
+    (300, 1000, False, False, "rows"),    # 32 threads a row, 8 rows a step
+    (2048, 5120, True, True, "rows"),     # fp32 w, read as stored
+    (1001, 5120, False, True, "rows"),    # ragged: half a step, short runs
+    (1001, 6656, True, False, "rows"),    # a 2-step ring
+    (300, 1001, True, True, "any"),       # W % 8 != 0: the scalar kernel
+    (5, 16392, False, False, "any"),      # wider than the row kernel holds
+])
+def test_rmsnorm_backward_kernel(gen, rows, w, add, w_fp32, kernel):
+    """The norm backward against its twin, on the kernel its plan names;
+    dx and dw the same bits twice."""
+    assert C.norm_bwd_plan(rows, w)["kernel"] == kernel
     x, r = randn(gen, rows, w), (randn(gen, rows, w) if add else None)
     wt = 1 + randn(gen, w, std=0.1)
+    if w_fp32:
+        wt = 1 + torch.randn(w, device="cuda", generator=gen) * 0.1
     y, _, rsig = C.rmsnorm_fwd(wt, x, r)
     dh, dy = randn(gen, rows, w), (randn(gen, rows, w) if add else None)
     dx, dw = launched(C.rmsnorm_bwd, lambda: C.rmsnorm_bwd(y, wt, rsig, dh,
                                                            dy))
+    assert dw.dtype == wt.dtype
     rdx, rdw = C.rmsnorm_bwd_reference(y, wt, rsig, dh, dy)
     assert_close_blocks(dx, rdx)
     assert_close_blocks(dw, rdw)
-    assert torch.equal(dw, C.rmsnorm_bwd(y, wt, rsig, dh, dy)[1])
+    again = C.rmsnorm_bwd(y, wt, rsig, dh, dy)
+    assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
 
 
 def test_inference_kernels_refuse_grad_on_card(gen):

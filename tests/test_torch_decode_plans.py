@@ -90,6 +90,39 @@ def test_decode_plan_keeps_the_first_row_kernel(shape, why):
     assert plan["grid"] == shape[0] * shape[1]
 
 
+CHUNK_SHAPES = [sh for sh in PLAN_SHAPES if sh[3] > 1 or sh[2] > 8]
+
+
+@pytest.mark.parametrize("page", [8, 16, 24, 64, 128])
+@pytest.mark.parametrize("shape", CHUNK_SHAPES)
+def test_paged_chunk_forms_take_the_dense_mma_plan(shape, page):
+    """A page pool's chunk forms (S = P * page) take the mma kernel with the
+    dense cache's splits and grid wherever pages are whole 8-row swizzle
+    atoms: the same items in the same order, so the paged lane gives the
+    dense lane's bits."""
+    b, hkv, rep, qn, s, d, itemsize = shape
+    s = -(-s // page) * page
+    dense = D.decode_plan(b, hkv, rep, qn, s, d, itemsize)
+    paged = D.decode_plan(b, hkv, rep, qn, s, d, itemsize, page=page)
+    assert paged["kernel"] == "mma"
+    assert paged == dense
+
+
+@pytest.mark.parametrize("page", [1, 4, 12, 20, 36])
+def test_paged_chunk_forms_outside_the_box_rule_keep_the_first_design(page):
+    """bf16 pages that are not a multiple of 8 rows cannot land TMA boxes on
+    the 128-byte swizzle's 8-row atoms: the chunk forms keep the first
+    design there. An int8 pool's chunks come by bulk copy a page run and
+    keep the mma kernel; the Sq = 1 forms keep the row kernel."""
+    s = 64 * page
+    plan = D.decode_plan(8, 52, 1, 32, s, 128, 2, page=page)
+    assert plan["kernel"] == "first" and plan["grid"] == 8 * 52
+    assert D.decode_plan(8, 52, 1, 32, s, 128, 1, page=page) == \
+        D.decode_plan(8, 52, 1, 32, s, 128, 1)
+    assert D.decode_plan(8, 52, 1, 1, s, 128, 2, page=page)["kernel"] == \
+        "rows"
+
+
 def test_decode_plan_needs_aligned_operands():
     assert D.decode_plan(8, 52, 1, 1, 1024, 128, 2,
                          aligned=False)["kernel"] == "first"
