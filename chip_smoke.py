@@ -1120,6 +1120,7 @@ def check_training_kernels(run, randn, attn_cost, results) -> None:
     import torch.nn.functional as F
     from emu_tpu_torch.ops import flash_attention as A
     from emu_tpu_torch.ops import fused_norm as C
+    from emu_tpu_torch.tools import bench_norm_bwd
 
     dev = torch.device("cuda")
     b, h, s, d = TRAIN_B, 40, TRAIN_S, 128
@@ -1199,35 +1200,19 @@ def check_training_kernels(run, randn, attn_cost, results) -> None:
     # the norm backward, bf16 w in both forms and an fp32 w (read as stored)
     rows, wd = b * s, 5120
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    w16 = 1 + randn(wd, std=0.1)
-    w32 = 1 + torch.randn(wd, device=dev, generator=torch.Generator(
-        device=dev).manual_seed(SEED)) * 0.1
-    for add, w in ((True, w16), (False, w16), (True, w32)):
-        x, dh = randn(rows, wd), randn(rows, wd)
-        r, dy = (randn(rows, wd), randn(rows, wd)) if add else (None, None)
-        y, _, rsig = C.rmsnorm_fwd(w, x, r)
-        leaves = [t.clone().requires_grad_() for t in
-                  ((x, w, r) if add else (x, w))]
-        yl = leaves[0] + leaves[2] if add else leaves[0]
-        hl = F.rms_norm(yl, (wd,), leaves[1], eps=1e-6)
-        outs, cots = ((yl, hl), (dy, dh)) if add else ((hl,), (dh,))
-        name = (f"rmsnorm_bwd_{'add' if add else 'rms'}_{rows}x{wd}"
-                + ("_w_fp32" if w is w32 else ""))
-        # bytes: y, dh (and dy_ext) read, dx written, w read, dw written,
-        # rsigma read
-        wb = w.element_size()
-        run(name, lambda: C.rmsnorm_bwd(y, w, rsig, dh, dy),
-            lambda: C.rmsnorm_bwd_reference(y, w, rsig, dh, dy), None, None,
-            2 * rows * wd * (4 if add else 3) + 2 * wb * wd + 4 * rows,
-            10 * rows * wd, "fp32",
-            library=lambda: torch.autograd.grad(outs, leaves, cots,
-                                                retain_graph=True))
-        one, two = (C.rmsnorm_bwd(y, w, rsig, dh, dy) for _ in range(2))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for add, w_fp32 in ((True, False), (False, False), (True, True)):
+        norm = bench_norm_bwd.case(rows, wd, add, w_fp32, gen)
+        name, args = norm["name"], norm["args"]
+        run(name, lambda: C.rmsnorm_bwd(*args),
+            lambda: C.rmsnorm_bwd_reference(*args), None, None,
+            norm["nbytes"], norm["ops"], "fp32", library=norm["library"])
+        one, two = (C.rmsnorm_bwd(*args) for _ in range(2))
         if not (torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])):
             raise AssertionError(f"{name}: two runs gave different bits")
         plan = C.norm_bwd_plan(rows, wd, sms)
         print(f"  {name}: dx and dw the same bits twice; plan {plan}")
-    del x, dh, r, dy, y, leaves, yl, hl, outs, cots, one, two
+        del norm, args, one, two
     torch.cuda.empty_cache()
 
     # the backward at 4096 causal keys, the TPU's tiled tier

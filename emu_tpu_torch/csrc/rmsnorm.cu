@@ -20,7 +20,10 @@
 // in its stored dtype (bf16 or fp32) and used in fp32, as the TPU kernel
 // reads it. A width that is not a multiple of 8, a base that is not
 // 16-byte aligned or a row longer than 8 * VMAX * 256 takes a scalar
-// kernel (one block a row, two passes over x and r). At decode (5-8 rows)
+// kernel (one block a row, two passes over x and r). The host chooses
+// (ops/fused_norm.py:row_tpr, for the forward and the backward alike) and
+// passes the threads a row (0: the scalar kernel); a row plan the kernel
+// cannot hold is refused, never rerouted. At decode (5-8 rows)
 // the kernel is a launch and two round trips; its event time there is the
 // wrapper's host work (ops/fused_norm.py keeps that to the launch's needs).
 //
@@ -44,10 +47,9 @@
 // shared memory as its one fp32 partial row. A second kernel adds the
 // partial rows in block order, so dw is the same bits on every run (no
 // atomics), and rounds them once to w's dtype. The plan is the host's
-// (ops/fused_norm.py:norm_bwd_plan). A width that is not a multiple of 8, a
-// base that is not 16-byte aligned or a row longer than the forward's
-// register plan holds takes a scalar kernel (one row at a time, two
-// passes, the dw sums in shared memory).
+// (ops/fused_norm.py:norm_bwd_plan); where the forward takes its scalar
+// kernel, so does the backward (one row at a time, two passes, the dw
+// sums in shared memory).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -64,6 +66,15 @@ __device__ __forceinline__ float load_w(const __nv_bfloat16* w, int i) {
   return __bfloat162float(w[i]);
 }
 __device__ __forceinline__ float load_w(const float* w, int i) { return w[i]; }
+
+// Whether tpr threads a row hold a row of W in at most VMAX 16-byte
+// vectors each: the row kernels' plan (the host's row_tpr gives it).
+bool row_plan_ok(int W, int tpr) {
+  return W % 8 == 0 && tpr >= 32 && tpr <= THREADS && !(tpr & (tpr - 1)) &&
+         (W / 8 + tpr - 1) / tpr <= VMAX;
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // Eight consecutive weights from w + i (i a multiple of 8), as fp32.
 __device__ __forceinline__ void load_w8(const __nv_bfloat16* w, int i, float (&f)[8]) {
@@ -194,30 +205,31 @@ __global__ void __launch_bounds__(THREADS) add_rmsnorm_any_kernel(
 
 template <typename WT>
 cudaError_t launch_fwd(const void* x, const void* r, const void* w, void* y, void* h,
-                       void* rsigma, int M, int W, float eps, cudaStream_t st) {
+                       void* rsigma, int M, int W, int tpr, float eps, cudaStream_t st) {
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
   const auto* rp = static_cast<const __nv_bfloat16*>(r);
   const auto* wp = static_cast<const WT*>(w);
   auto* yp = static_cast<__nv_bfloat16*>(y);
   auto* hp = static_cast<__nv_bfloat16*>(h);
   auto* sp = static_cast<float*>(rsigma);
-  const auto a16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  if (W % 8 == 0 && W <= 8 * VMAX * THREADS && a16(x) && a16(r) && a16(w) && a16(y) &&
-      a16(h)) {
-    int tpr = 32;
-    while (tpr * VMAX * 8 < W) tpr *= 2;
-    const int rows = THREADS / tpr;
-    add_rmsnorm_rows_kernel<WT><<<(M + rows - 1) / rows, THREADS, 0, st>>>(
-        xp, rp, wp, yp, hp, sp, M, W, tpr, eps);
-  } else {
+  if (tpr == 0) {
     add_rmsnorm_any_kernel<WT><<<M, THREADS, 0, st>>>(xp, rp, wp, yp, hp, sp, W, eps);
+    return cudaGetLastError();
   }
+  if (!row_plan_ok(W, tpr) || !aligned16(x) || !aligned16(r) || !aligned16(w) ||
+      !aligned16(y) || !aligned16(h))
+    return cudaErrorInvalidValue;
+  const int rows = THREADS / tpr;
+  add_rmsnorm_rows_kernel<WT><<<(M + rows - 1) / rows, THREADS, 0, st>>>(
+      xp, rp, wp, yp, hp, sp, M, W, tpr, eps);
   return cudaGetLastError();
 }
 
 // ---- the backward --------------------------------------------------------
 
-constexpr int BWD_STAGES = 4;   // the most ring stages the kernel takes (its plan gives 2)
+// The backward row kernel's ring depth in steps: 3 measured 4% slower at
+// 2048 x 5120 and 4 do not fit one block at W = 5120 (PERF.md, PR 12).
+constexpr int BWD_STAGES = 2;
 
 // The eight bf16 of a 16-byte unit as floats.
 __device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
@@ -236,7 +248,7 @@ __device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
 // thread's columns are the same on every row, so its w (fp32, read once)
 // and its dw sums stay in registers for the whole run. Thread 0 streams
 // each step's rows of y, dh and dy_ext (one contiguous run each) into a
-// `stages`-deep ring by cp.async.bulk, so the next steps are in flight
+// BWD_STAGES-deep ring by cp.async.bulk, so the next step is in flight
 // while this one reduces. (Loading the next step into registers instead
 // measured as fast at W = 5120 and spilled at 6656: PERF.md, PR 12.)
 template <typename WT, int NV>
@@ -244,9 +256,14 @@ __global__ void __launch_bounds__(THREADS, 1) add_rmsnorm_bwd_rows_kernel(
     const __nv_bfloat16* __restrict__ y, const WT* __restrict__ w,
     const float* __restrict__ rsigma, const __nv_bfloat16* __restrict__ dh,
     const __nv_bfloat16* __restrict__ dy_ext, __nv_bfloat16* __restrict__ dx,
-    float* __restrict__ dw_part, int M, int W, int tpr, int rows_per_block,
-    int stages) {
-  extern __shared__ __align__(16) unsigned char ring[];  // [stages][y, dh, dy][step rows][W]
+    float* __restrict__ dw_part, int M, int W, int tpr, int rows_per_block) {
+  // [BWD_STAGES][y, dh, dy][step rows][W] from the first 128-byte line of
+  // the dynamic shared memory: a ring that started 16 bytes into a line
+  // (after 48 bytes of static shared memory) measured 10% slower (PERF.md,
+  // PR 12)
+  extern __shared__ __align__(16) unsigned char ring_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(ring_raw) + 127) & ~static_cast<uintptr_t>(127));
   __shared__ uint64_t full[BWD_STAGES];
   __shared__ float partial[THREADS / 32];
   const int nv = W / 8, step = THREADS / tpr, wpr = tpr / 32;
@@ -257,8 +274,8 @@ __global__ void __launch_bounds__(THREADS, 1) add_rmsnorm_bwd_rows_kernel(
   const bool add = dy_ext != nullptr;
   const uint32_t run = static_cast<uint32_t>(step) * W * 2;   // a slot's bytes
 
-  auto issue = [&](int k) {   // thread 0: step k's rows into stage k % stages
-    const int s = k % stages, row = r0 + k * step;
+  auto issue = [&](int k) {   // thread 0: step k's rows into stage k % BWD_STAGES
+    const int s = k % BWD_STAGES, row = r0 + k * step;
     const uint32_t bytes = static_cast<uint32_t>(min(step, r1 - row)) * W * 2;
     unsigned char* st = ring + static_cast<size_t>(s) * 3 * run;
     const long long off = static_cast<long long>(row) * W;
@@ -268,9 +285,9 @@ __global__ void __launch_bounds__(THREADS, 1) add_rmsnorm_bwd_rows_kernel(
     if (add) bulk_load(st + 2 * run, dy_ext + off, bytes, &full[s]);
   };
   if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
+    for (int s = 0; s < BWD_STAGES; ++s) mbar_init(&full[s], 1);
     mbar_fence_init();
-    for (int k = 0; k < min(steps, stages); ++k) issue(k);
+    for (int k = 0; k < min(steps, BWD_STAGES); ++k) issue(k);
   }
   __syncthreads();
 
@@ -287,8 +304,8 @@ __global__ void __launch_bounds__(THREADS, 1) add_rmsnorm_bwd_rows_kernel(
     const int row = r0 + k * step + rib;
     const bool live = row < r1;
     const float rs = live ? rsigma[row] : 0.f;
-    const int s = k % stages;
-    mbar_wait(&full[s], (k / stages) & 1);
+    const int s = k % BWD_STAGES;
+    mbar_wait(&full[s], (k / BWD_STAGES) & 1);
     const unsigned char* st = ring + static_cast<size_t>(s) * 3 * run + rib * W * 2;
     uint4 yv[NV], dv[NV], ev[NV];
 #pragma unroll
@@ -348,7 +365,7 @@ __global__ void __launch_bounds__(THREADS, 1) add_rmsnorm_bwd_rows_kernel(
       }
     }
     __syncthreads();   // stage s and `partial` are read out
-    if (threadIdx.x == 0 && k + stages < steps) issue(k + stages);
+    if (threadIdx.x == 0 && k + BWD_STAGES < steps) issue(k + BWD_STAGES);
   }
 
   // the block's partial row: the step's rows' sums added in row order
@@ -449,20 +466,20 @@ template <typename WT, int NV>
 cudaError_t launch_bwd_rows(const __nv_bfloat16* y, const WT* w, const float* rs,
                             const __nv_bfloat16* dh, const __nv_bfloat16* dy,
                             __nv_bfloat16* dx, float* part, int M, int W, int tpr,
-                            int rows_per_block, int grid, int stages, cudaStream_t st) {
+                            int rows_per_block, int grid, cudaStream_t st) {
   static size_t configured = 0;
-  const size_t bytes = static_cast<size_t>(stages) * 3 * (THREADS / tpr) * W * 2;
+  const size_t bytes = static_cast<size_t>(BWD_STAGES) * 3 * (THREADS / tpr) * W * 2 + 128;
   const cudaError_t err = allow_smem(add_rmsnorm_bwd_rows_kernel<WT, NV>, bytes, configured);
   if (err != cudaSuccess) return err;
   add_rmsnorm_bwd_rows_kernel<WT, NV><<<grid, THREADS, bytes, st>>>(
-      y, w, rs, dh, dy, dx, part, M, W, tpr, rows_per_block, stages);
+      y, w, rs, dh, dy, dx, part, M, W, tpr, rows_per_block);
   return cudaGetLastError();
 }
 
 template <typename WT>
 cudaError_t launch_bwd(const void* y, const void* w, const void* rsigma, const void* dh,
                        const void* dy, void* dx, void* part, int M, int W, int tpr,
-                       int rows_per_block, int grid, int stages, cudaStream_t st) {
+                       int rows_per_block, int grid, cudaStream_t st) {
   const auto* yp = static_cast<const __nv_bfloat16*>(y);
   const auto* wp = static_cast<const WT*>(w);
   const auto* rp = static_cast<const float*>(rsigma);
@@ -479,20 +496,19 @@ cudaError_t launch_bwd(const void* y, const void* w, const void* rsigma, const v
                                                                  M, W, rows_per_block);
     return cudaGetLastError();
   }
-  const auto a16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  const int nv = (W / 8 + tpr - 1) / tpr;
-  if (W % 8 || tpr < 32 || tpr > THREADS || (tpr & (tpr - 1)) || nv > VMAX ||
-      stages < 1 || stages > BWD_STAGES || !a16(y) || !a16(w) || !a16(dh) || !a16(dy) || !a16(dx))
+  if (!row_plan_ok(W, tpr) || !aligned16(y) || !aligned16(w) || !aligned16(dh) ||
+      !aligned16(dy) || !aligned16(dx))
     return cudaErrorInvalidValue;   // the plan sends such calls to the scalar kernel
+  const int nv = (W / 8 + tpr - 1) / tpr;
   switch (nv) {
-    case 1: return launch_bwd_rows<WT, 1>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, stages, st);
-    case 2: return launch_bwd_rows<WT, 2>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, stages, st);
-    case 3: return launch_bwd_rows<WT, 3>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, stages, st);
-    case 4: return launch_bwd_rows<WT, 4>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, stages, st);
-    case 5: return launch_bwd_rows<WT, 5>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, stages, st);
-    case 6: return launch_bwd_rows<WT, 6>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, stages, st);
-    case 7: return launch_bwd_rows<WT, 7>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, stages, st);
-    default: return launch_bwd_rows<WT, 8>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, stages, st);
+    case 1: return launch_bwd_rows<WT, 1>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, st);
+    case 2: return launch_bwd_rows<WT, 2>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, st);
+    case 3: return launch_bwd_rows<WT, 3>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, st);
+    case 4: return launch_bwd_rows<WT, 4>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, st);
+    case 5: return launch_bwd_rows<WT, 5>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, st);
+    case 6: return launch_bwd_rows<WT, 6>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, st);
+    case 7: return launch_bwd_rows<WT, 7>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, st);
+    default: return launch_bwd_rows<WT, 8>(yp, wp, rp, dp, ep, xp, pp, M, W, tpr, rows_per_block, grid, st);
   }
 }
 
@@ -503,21 +519,20 @@ cudaError_t launch_bwd(const void* y, const void* w, const void* rsigma, const v
 // bf16; dw_part [grid, W] fp32 (one partial row a block). The plan
 // (ops/fused_norm.py:norm_bwd_plan): tpr threads a row (0: the scalar
 // kernel), rows_per_block rows a block (whole steps of 256 / tpr rows),
-// `grid` blocks, a `stages`-deep ring. Launches on `stream`; returns
+// `grid` blocks. Launches on `stream`; returns
 // cudaGetLastError().
 extern "C" int emu_add_rmsnorm_bwd(const void* y, const void* w,
                                    const void* rsigma, const void* dh,
                                    const void* dy_ext, void* dx, void* dw_part,
                                    void* dw, int M, int W, int w_fp32, int tpr,
-                                   int rows_per_block, int grid, int stages,
-                                   void* stream) {
+                                   int rows_per_block, int grid, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M > 0) {
     const cudaError_t err =
         w_fp32 ? launch_bwd<float>(y, w, rsigma, dh, dy_ext, dx, dw_part, M, W, tpr,
-                                   rows_per_block, grid, stages, st)
+                                   rows_per_block, grid, st)
                : launch_bwd<__nv_bfloat16>(y, w, rsigma, dh, dy_ext, dx, dw_part, M, W, tpr,
-                                           rows_per_block, grid, stages, st);
+                                           rows_per_block, grid, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const auto* part = static_cast<const float*>(dw_part);
@@ -530,13 +545,15 @@ extern "C" int emu_add_rmsnorm_bwd(const void* y, const void* w,
 }
 
 // x, r (or null), y (null without r), h: [M, W] bf16 rows; w: [W], fp32
-// when w_fp32 else bf16; rsigma: [M] fp32. Launches on `stream`; returns
-// cudaGetLastError().
+// when w_fp32 else bf16; rsigma: [M] fp32; tpr the threads a row of the
+// row kernel, 0 for the scalar kernel (ops/fused_norm.py:row_tpr).
+// Launches on `stream`; returns cudaGetLastError().
 extern "C" int emu_add_rmsnorm_fwd(const void* x, const void* r, const void* w,
                                    void* y, void* h, void* rsigma, int M, int W,
-                                   int w_fp32, float eps, void* stream) {
+                                   int w_fp32, int tpr, float eps, void* stream) {
   if (M == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(w_fp32 ? launch_fwd<float>(x, r, w, y, h, rsigma, M, W, eps, st)
-                                 : launch_fwd<__nv_bfloat16>(x, r, w, y, h, rsigma, M, W, eps, st));
+  return static_cast<int>(
+      w_fp32 ? launch_fwd<float>(x, r, w, y, h, rsigma, M, W, tpr, eps, st)
+             : launch_fwd<__nv_bfloat16>(x, r, w, y, h, rsigma, M, W, tpr, eps, st));
 }

@@ -50,8 +50,8 @@ SIGNATURES = {
     "emu_fused_swiglu_q4_fwd": [_P] * 11 + [_I] * 6 + [_F] + [_I] * 5
                                + [_P],
     "emu_wd_smem": [_I] * 4,
-    "emu_add_rmsnorm_fwd": [_P] * 6 + [_I, _I, _I, _F, _P],
-    "emu_add_rmsnorm_bwd": [_P] * 8 + [_I] * 7 + [_P],
+    "emu_add_rmsnorm_fwd": [_P] * 6 + [_I] * 4 + [_F, _P],
+    "emu_add_rmsnorm_bwd": [_P] * 8 + [_I] * 6 + [_P],
     "emu_decode_attention_fwd": [_P] + [_L] * 3 + [_P] * 6 + [_L] * 3 + [_P]
                                 + [_L] * 3 + [_P] + [_I] * 3 + [_P]
                                 + [_I] * 6 + [_L, _F, _I] + [_I] * 3

@@ -44,6 +44,28 @@ def rmsnorm_reference(w, x, r=None, eps: float = 1e-6):
     return y, h, rsig.reshape(-1)
 
 
+# Kernel C's row kernels (csrc/rmsnorm.cu): threads a block, the most
+# 16-byte vectors a thread holds of a row (VMAX), the backward ring's depth
+# in steps (BWD_STAGES there: 3 measured 4% slower than 2 at 2048 x 5120,
+# PERF.md, PR 12)
+NORM_THREADS, NORM_VMAX, NORM_STAGES = 256, 8, 2
+
+
+@functools.lru_cache(maxsize=256)
+def row_tpr(w: int, aligned: bool = True) -> int:
+    """Threads a row of kernel C's row kernels, forward and backward alike,
+    for rows of width w: the fewest powers of two from 32 that hold the row
+    in NORM_VMAX 16-byte vectors a thread; 0 (the scalar kernels) where w %
+    8 != 0, w > 8 * NORM_VMAX * NORM_THREADS or an operand is not 16-byte
+    aligned. The kernels refuse a plan they cannot hold."""
+    if w % 8 or w > 8 * NORM_VMAX * NORM_THREADS or not aligned:
+        return 0
+    tpr = 32
+    while tpr * NORM_VMAX * 8 < w:
+        tpr *= 2
+    return tpr
+
+
 def rmsnorm_fwd(w, x, r=None, eps: float = 1e-6):
     """(y, h, rsigma) for x/r [..., W] and w [W]; y is x when r is None.
     w is read in its stored dtype (bf16 or fp32; another float dtype is
@@ -68,12 +90,15 @@ def rmsnorm_fwd(w, x, r=None, eps: float = 1e-6):
     h = torch.empty_like(x)
     m = x.numel() // wd
     rsig = torch.empty(m, device=x.device, dtype=torch.float32)
+    # y and h are fresh: the allocator aligns them
+    tpr = row_tpr(wd, all(t.data_ptr() % 16 == 0 for t in (x, r, w)
+                          if t is not None))
     with _cuda.device_of(x):
         status = _cuda.library().emu_add_rmsnorm_fwd(
             x.data_ptr(), _cuda.ptr(r), w.data_ptr(),
             None if r is None else y.data_ptr(), h.data_ptr(),
-            rsig.data_ptr(), m, wd, int(w.dtype == torch.float32), float(eps),
-            _cuda.stream(x))
+            rsig.data_ptr(), m, wd, int(w.dtype == torch.float32), tpr,
+            float(eps), _cuda.stream(x))
     _cuda.check(status, "rmsnorm")
     rmsnorm_fwd.launches += 1
     return y, h, rsig
@@ -98,45 +123,35 @@ def rmsnorm_bwd_reference(y, w, rsigma, dh, dy_ext=None):
     return dx.to(y.dtype).reshape(y.shape), dw.to(w.dtype)
 
 
-# Kernel C's backward (csrc/rmsnorm.cu): threads a block, the most 16-byte
-# vectors a thread holds of a row (the forward's VMAX), the ring's depth in
-# steps (3 measured 4% slower than 2 at 2048 x 5120: PERF.md, PR 12)
-NORM_THREADS, NORM_VMAX, NORM_STAGES = 256, 8, 2
-
-
 @functools.lru_cache(maxsize=256)
 def norm_bwd_plan(m: int, w: int, sms: int = _cuda.H100_SMS,
                   aligned: bool = True) -> dict:
     """How kernel C's backward runs over m rows of width w: a function of
     the shape (and of the operands' 16-byte alignment) alone.
 
-    - kernel: "rows" where the forward takes its row kernel (w % 8 == 0,
-      w <= 8 * NORM_VMAX * NORM_THREADS, aligned operands), else "any" (the
-      scalar kernel: one row at a time, two passes);
-    - tpr: threads a row, the forward's (the fewest powers of two from 32
-      that hold the row in NORM_VMAX vectors a thread; 0 for "any");
+    - kernel: "rows" where the forward takes its row kernel (`row_tpr`
+      nonzero), else "any" (the scalar kernel: one row at a time, two
+      passes);
+    - tpr: threads a row, the forward's (`row_tpr`; 0 for "any");
       rows_step = NORM_THREADS // tpr rows a block takes at once;
-    - stages: the ring's depth in steps of y, dh and dy_ext rows
-      (NORM_STAGES; one block's shared memory holds two steps of the
-      widest row); smem its bytes;
+    - smem: the bytes of the ring of NORM_STAGES steps of y, dh and dy_ext
+      rows, and 128 to start it on a 128-byte line (one block's shared
+      memory holds two steps of the widest row);
     - grid: at most one block an SM, each a contiguous run of
       rows_per_block rows (whole steps), none empty; parts: the fp32
       partial rows of dw, one a block, summed in block order."""
-    if w % 8 or w > 8 * NORM_VMAX * NORM_THREADS or not aligned:
+    tpr = row_tpr(w, aligned)
+    if not tpr:
         per_block = max(1, -(-m // 256))
         grid = -(-m // per_block)
-        return {"kernel": "any", "tpr": 0, "rows_step": 1, "stages": 0,
-                "smem": 4 * w, "rows_per_block": per_block, "grid": grid,
-                "parts": grid}
-    tpr = 32
-    while tpr * NORM_VMAX * 8 < w:
-        tpr *= 2
+        return {"kernel": "any", "tpr": 0, "rows_step": 1, "smem": 4 * w,
+                "rows_per_block": per_block, "grid": grid, "parts": grid}
     step = NORM_THREADS // tpr
     steps = -(-m // step)
     per_block = -(-steps // min(steps, sms)) if steps else 0
     grid = -(-steps // per_block) if steps else 0
     return {"kernel": "rows", "tpr": tpr, "rows_step": step,
-            "stages": NORM_STAGES, "smem": NORM_STAGES * 3 * step * w * 2,
+            "smem": NORM_STAGES * 3 * step * w * 2 + 128,
             "rows_per_block": per_block * step, "grid": grid, "parts": grid}
 
 
@@ -178,8 +193,7 @@ def rmsnorm_bwd(y, w, rsigma, dh, dy_ext=None):
             yf.data_ptr(), wk.data_ptr(), rsigma.contiguous().data_ptr(),
             dhf.data_ptr(), _cuda.ptr(dyf), dx.data_ptr(), dw_part.data_ptr(),
             dw.data_ptr(), m, wd, int(wk.dtype == torch.float32), plan["tpr"],
-            plan["rows_per_block"], plan["grid"], plan["stages"],
-            _cuda.stream(y))
+            plan["rows_per_block"], plan["grid"], _cuda.stream(y))
     _cuda.check(status, "rmsnorm_bwd")
     rmsnorm_bwd.launches += 1
     return dx.reshape(y.shape), dw.to(w.dtype)   # a copy only for a widened w

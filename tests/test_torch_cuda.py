@@ -837,6 +837,27 @@ def test_rmsnorm_backward_kernel(gen, rows, w, add, w_fp32, kernel):
     assert torch.equal(dx, again[0]) and torch.equal(dw, again[1])
 
 
+@pytest.mark.parametrize("w", [4096, 5120])
+def test_rmsnorm_unaligned_rows_take_the_scalar_kernels(gen, w):
+    """Rows cut from a buffer one element in are not 16-byte aligned: the
+    host's row rule (`row_tpr`) sends the forward and the backward alike to
+    their scalar kernels, which match their twins."""
+    rows = 5
+    x = randn(gen, rows * w + 1)[1:].view(rows, w)
+    dh = randn(gen, rows * w + 1)[1:].view(rows, w)
+    assert x.data_ptr() % 16 and C.row_tpr(w, False) == 0
+    assert C.norm_bwd_plan(rows, w, aligned=False)["kernel"] == "any"
+    wt = 1 + randn(gen, w, std=0.1)
+    _, h, rsig = launched(C.rmsnorm_fwd, lambda: C.rmsnorm_fwd(wt, x))
+    ref = C.rmsnorm_reference(wt, x)
+    assert_close(h, ref[1])
+    assert_close(rsig, ref[2], tol=1e-5)
+    dx, dw = launched(C.rmsnorm_bwd, lambda: C.rmsnorm_bwd(x, wt, rsig, dh))
+    rdx, rdw = C.rmsnorm_bwd_reference(x, wt, rsig, dh)
+    assert_close_blocks(dx, rdx)
+    assert_close_blocks(dw, rdw)
+
+
 def test_inference_kernels_refuse_grad_on_card(gen):
     """Kernel B has no backward: with inputs that require grad it raises
     instead of returning a tensor that cuts the graph."""

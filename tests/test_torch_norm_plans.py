@@ -1,8 +1,8 @@
 """The host-side plan of kernel C's backward (`fused_norm.norm_bwd_plan`)
 on the CPU. It is a pure function of the shape: which kernel takes the rows
-(the row kernel exactly where the forward takes its own), the threads of a
-row, the rows a block takes at once, the ring's depth and the persistent
-grid whose blocks each own a contiguous run of rows and one partial row of
+(the row kernel exactly where the forward takes its own: both read
+`row_tpr`), the threads of a row, the rows a block takes at once, the
+ring's bytes and the persistent grid whose blocks each own a contiguous run of rows and one partial row of
 dw. It needs no card."""
 
 import pytest
@@ -50,32 +50,36 @@ def test_norm_bwd_plan_covers_every_row_once(m, w):
                                16385, 16392, 12, 7])
 def test_norm_bwd_plan_takes_the_row_kernel_where_the_forward_does(w,
                                                                    aligned):
-    """The row kernel exactly where the forward's conditions hold (rmsnorm.cu
-    `launch_fwd`: w % 8 == 0, w <= 8 * VMAX * 256, 16-byte aligned
-    operands), with the forward's threads a row; the ring fits one block's
-    shared memory with at least two steps in flight and holds the block's
-    partial rows at the end; the scalar kernel's dw sums fit too."""
+    """The row kernel exactly where the forward's conditions hold (w % 8 ==
+    0, w <= 8 * NORM_VMAX * NORM_THREADS, 16-byte aligned operands), with
+    the threads a row the forward's wrapper passes (`row_tpr`: the fewest
+    powers of two from 32 that hold the row in NORM_VMAX vectors each); the
+    ring of NORM_STAGES steps fits one block's shared memory and holds the
+    block's partial rows at the end; the scalar kernel's dw sums fit too."""
     plan = C.norm_bwd_plan(2048, w, aligned=aligned)
-    vector = w % 8 == 0 and w <= 8 * 8 * 256 and aligned
+    vmax, threads = C.NORM_VMAX, C.NORM_THREADS
+    vector = w % 8 == 0 and w <= 8 * vmax * threads and aligned
     assert plan["kernel"] == ("rows" if vector else "any")
+    assert plan["tpr"] == C.row_tpr(w, aligned)
     if vector:
-        tpr = 32
-        while tpr * 8 * 8 < w:
-            tpr *= 2
-        assert plan["tpr"] == tpr and plan["rows_step"] == 256 // tpr
-        assert 2 <= plan["stages"] <= C.NORM_STAGES
-        assert plan["smem"] == plan["stages"] * 3 * plan["rows_step"] * w * 2
+        tpr = plan["tpr"]
+        assert tpr in (32, 64, 128, 256)
+        assert tpr * vmax * 8 >= w and (tpr == 32 or tpr * vmax * 4 < w)
+        assert plan["rows_step"] == threads // tpr
+        assert plan["smem"] == \
+            C.NORM_STAGES * 3 * plan["rows_step"] * w * 2 + 128
         assert plan["rows_step"] * w * 4 <= plan["smem"] <= SMEM_PER_BLOCK
     else:
-        assert plan["tpr"] == 0 and plan["stages"] == 0
+        assert plan["tpr"] == 0
         assert plan["smem"] == 4 * w <= SMEM_PER_BLOCK
 
 
 def test_norm_bwd_plan_at_the_train_step():
     """Emu1's train step (2048 rows of 5120): 128 threads a row, two rows a
-    step, a ring of two steps, 128 blocks of 16 rows: 128 partial rows of
-    dw instead of the first design's 256."""
+    step, a ring of two steps (120 KiB and a line to align it), 128 blocks of 16 rows: 128 partial
+    rows of dw instead of the first design's 256."""
     plan = C.norm_bwd_plan(2048, 5120)
-    assert (plan["tpr"], plan["rows_step"], plan["stages"]) == (128, 2, 2)
+    assert (plan["tpr"], plan["rows_step"], plan["smem"]) == \
+        (128, 2, 2 * 3 * 2 * 5120 * 2 + 128)
     assert (plan["grid"], plan["rows_per_block"], plan["parts"]) == \
         (128, 16, 128)

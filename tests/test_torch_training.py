@@ -70,44 +70,52 @@ def perturb(tree, seed=0):
 
 
 @pytest.mark.parametrize("add", [True, False])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "mixed"])
 def test_norm_backward_matches_jax_vjp(add, dtype):
     """rmsnorm_bwd (the plain twin) and the autograd Functions against the
     JAX custom VJP of the Pallas kernels (interpret mode): dw, dx and, in
-    the add form, the residual's cotangent; bf16 at 1e-2."""
+    the add form, the residual's cotangent, and their dtypes; bf16 at 1e-2.
+    "mixed" is bf16 rows and cotangents with an fp32 w, which both read as
+    stored and which gives an fp32 dw."""
     rng = np.random.default_rng(10)
     rows, wd, eps = 21, 256, 1e-6
     x, r = rnd(rng, rows, wd), rnd(rng, rows, wd)
     w = 1 + rnd(rng, wd, scale=0.1)
     dh, dy = rnd(rng, rows, wd), rnd(rng, rows, wd)
-    jdt = jnp.dtype(dtype)
-    tdt = getattr(torch, dtype)
+    act = "bfloat16" if dtype == "mixed" else dtype
+    wdt = "float32" if dtype == "mixed" else dtype
+    jdt, jwdt = jnp.dtype(act), jnp.dtype(wdt)
+    tdt, twdt = getattr(torch, act), getattr(torch, wdt)
     tol = TOL if dtype == "float32" else 1e-2
     J = lambda a: jnp.asarray(a, jdt)
     if add:
         _, vjp = jax.vjp(lambda w_, x_, r_: jnorm.add_rmsnorm(
-            w_, x_, r_, eps, interpret=True), J(w), J(x), J(r))
+            w_, x_, r_, eps, interpret=True), jnp.asarray(w, jwdt), J(x),
+            J(r))
         jdw, jdx, jdr = vjp((J(dy), J(dh)))
     else:
         _, vjp = jax.vjp(lambda w_, x_: jnorm.rms_norm_fused(
-            w_, x_, eps, interpret=True), J(w), J(x))
+            w_, x_, eps, interpret=True), jnp.asarray(w, jwdt), J(x))
         jdw, jdx = vjp(J(dh))
+    assert (jdw.dtype, jdx.dtype) == (jwdt, jdt)
     # the twin, from the forward's saved (y, rsigma)
-    tw, tx, tr = t(w, tdt), t(x, tdt), t(r, tdt)
+    tw, tx, tr = t(w, twdt), t(x, tdt), t(r, tdt)
     y, _, rsig = norm.rmsnorm_fwd(tw, tx, tr if add else None, eps)
     dx, dw = norm.rmsnorm_bwd(y, tw, rsig, t(dh, tdt),
                               t(dy, tdt) if add else None)
+    assert (dw.dtype, dx.dtype) == (twdt, tdt)
     close(dx, jdx, tol, "twin dx")
     close(dw, jdw, tol, "twin dw")
     # the Functions (the public entry points take them for bf16; fp32
     # activations take the plain composition, so call them directly)
-    tw, tx, tr = t(w, tdt, True), t(x, tdt, True), t(r, tdt, True)
+    tw, tx, tr = t(w, twdt, True), t(x, tdt, True), t(r, tdt, True)
     if add:
         yy, hh = norm._AddRMSNorm.apply(tw, tx, tr, eps)
         torch.autograd.backward((yy, hh), (t(dy, tdt), t(dh, tdt)))
         close(tr.grad, jdr, tol, "Function dr")
     else:
         norm._RMSNorm.apply(tw, tx, eps).backward(t(dh, tdt))
+    assert (tw.grad.dtype, tx.grad.dtype) == (twdt, tdt)
     close(tx.grad, jdx, tol, "Function dx")
     close(tw.grad, jdw, tol, "Function dw")
 
