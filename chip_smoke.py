@@ -24,12 +24,15 @@ Phases (any failure raises and the script exits non-zero):
      slots; C's backward with bf16 and fp32 weights, dx and dw the same
      bits twice);
   4. a full-width Emu1 cut to 2 layers, built from one seed: last-position
-     logits of one caption prompt on the card (bf16, kernels) against the
+     logits of a caption prompt, an 8-frame video-QA prompt and a
+     two-image interleaved prompt on the card (bf16, kernels) against the
      CPU (fp32, plain twins);
   5. the full-width, full-depth Emu1 (ViT-g, T5-base Causal Former,
      LLaMA-13B; random weights drawn on the card) answering caption/VQA
      requests through Emu1Runner, with every kernel's launch count: beam
-     search and greedy, then a sampled caption (the server's sampling
+     search and greedy, a two-image interleaved request and an 8-frame
+     video-QA request at beam 5 (their launches held to the counts the
+     structure gives), then a sampled caption (the server's sampling
      defaults, a seeded card generator: the same tokens twice, and top_k=1
      sampling equal to greedy), a beam-sample caption at 5 beams, a
      contrastive-search caption (penalty_alpha 0.6, top_k 4: kernel D at 4
@@ -47,7 +50,8 @@ Phases (any failure raises and the script exits non-zero):
   8. the continuous engine's decode forms on a full-width Emu2-Chat int4
      cut to 2 layers, int8 KV cache, teacher-forced: last-position logits
      of a bucket prefill, a chunked mixed step and decode steps on the card
-     against the CPU (fp32, plain twins);
+     against the CPU (fp32, plain twins); every call of kernels F, G and D
+     in that run against its plain twin on the same inputs on the card;
   9. the full-depth Emu2-Chat int4 served over HTTP by the continuous
      engine (int8 KV, chunked prefill, per-request sampling, a 1-layer
      draft for speculative requests), exactly as `python -m
@@ -110,7 +114,8 @@ Phases (any failure raises and the script exits non-zero):
      Emu2-Chat cut to 2 layers through EmuChatGeneration(mesh=(1, 2)), bf16
      and int4 with the W8A8 tower, on two images, logits within phase 6's
      limits and 8 greedy tokens, and load_emu2_checkpoint(mesh=) of the
-     same tree equal to the sharded chat's leaves; (b) Emu1 cut to 2
+     same tree equal to the sharded chat's leaves, with each load's peak
+     memory; (b) Emu1 cut to 2
      layers through Trainer(mesh=) at (2, 1) and (1, 2), 3 losses and the
      first step's gradients within phase 11's limits, the factored leaves'
      parameter deltas within 0.25 of their norm; (c) ring attention over
@@ -1347,12 +1352,23 @@ def check_training_kernels(run, randn, attn_cost, results) -> None:
     torch.cuda.empty_cache()
 
 
-def check_two_layer(card: str, image) -> None:
-    """Phase 4: the same 2-layer full-width weights, card bf16 vs CPU fp32."""
+# phases 4-5: the interleaved and video-QA prompts (two images, 8 frames)
+INTERLEAVED = ("[<IMG_PLH>]The first picture. [<IMG_PLH>]The second one. "
+               "What differs between them?")
+VIDEO_QUESTION = "What happens in the video?"
+
+
+def check_two_layer(card: str, images) -> None:
+    """Phase 4: the same 2-layer full-width weights, card bf16 vs CPU fp32:
+    last-position logits of a caption prompt (one image), an 8-frame
+    video-QA prompt and a two-image interleaved prompt (the prompts of
+    `Emu1Runner.video_qa` and `.interleaved`), each within 0.05 of
+    max|ref|."""
     import torch
     from emu_tpu_torch.bridge import cast_tree
     from emu_tpu_torch.cli.inference import (Emu1Runner, build_runner,
-                                             image_system_msg)
+                                             image_system_msg,
+                                             video_system_msg)
     from emu_tpu_torch.models.emu1 import Emu1
 
     t0 = time.perf_counter()
@@ -1360,19 +1376,50 @@ def check_two_layer(card: str, image) -> None:
     gpu_model = Emu1(cpu.cfg, cast_tree(cpu.model.tree(), "cuda",
                                         torch.bfloat16))
     gpu = Emu1Runner(gpu_model, cpu.cfg, cpu.tokenizer)
-    prompt = cpu.caption_prompt()
-    ref = cpu.next_token_logits([image], prompt, system=image_system_msg)
-    got = gpu.next_token_logits([image], prompt, system=image_system_msg)
-    print(f"  2-layer full-width Emu1, vocab {ref.shape[-1]}, "
-          f"{time.perf_counter() - t0:.1f} s")
-    compare("logits_2layer_card_bf16_vs_cpu_fp32", got.cpu(), ref,
-            atol=0.0, rtol=0.05)
-    agree = int(got.float().argmax()) == int(ref.argmax())
-    print(f"  argmax agrees: {agree}")
+    prompts = [
+        ("logits_2layer_card_bf16_vs_cpu_fp32", images[:1],
+         cpu.caption_prompt(), image_system_msg),
+        ("logits_2layer_video_8_frames_card_bf16_vs_cpu_fp32", images[:8],
+         cpu.video_prompt(8, VIDEO_QUESTION), video_system_msg),
+        ("logits_2layer_interleaved_2_images_card_bf16_vs_cpu_fp32",
+         images[:2], cpu.interleaved_prompt(INTERLEAVED), ""),
+    ]
+    for name, imgs, prompt, system in prompts:
+        t1 = time.perf_counter()
+        ref = cpu.next_token_logits(imgs, prompt, system=system)
+        got = gpu.next_token_logits(imgs, prompt, system=system)
+        print(f"  2-layer full-width Emu1, {len(imgs)} image(s), prompt "
+              f"{gpu.last_stats['prompt_len']} tokens, vocab {ref.shape[-1]},"
+              f" {time.perf_counter() - t1:.1f} s")
+        compare(name, got.cpu(), ref, atol=0.0, rtol=0.05)
+        agree = int(got.float().argmax()) == int(ref.argmax())
+        print(f"  argmax agrees: {agree}")
+    print(f"  phase 4: {time.perf_counter() - t0:.1f} s")
 
 
-def run_full(card: str, images) -> dict:
-    """Phase 5: full-depth Emu1 through the runner, a few requests.
+def emu1_launches(cfg, steps: int) -> dict:
+    """The launches of one Emu1Runner request (one prompt row, greedy or
+    beam: a beam step is one model call over all beams) whose images go
+    through one encode, with `steps` decode steps: the tower's
+    (`tower_launches`, one forward at any batch), kernel H's plain TMA form
+    on the Causal Former's projection (32 rows an image), and in the LLaMA
+    kernel A per layer in the prefill, kernel C twice a layer (the input
+    norm; the residual add and post-attention norm) in the prefill and in
+    every decode step, and kernel D (Sq = 1, bf16) per layer per decode
+    step. Its denses have no bias and take torch.matmul, its final norm is
+    `layers.rms_norm`; the Causal Former runs no kernel."""
+    out = tower_launches(cfg.vision.layers, 1)
+    n = cfg.llama.num_hidden_layers
+    out["fused_dense"] += 1
+    out["attention"] += n
+    out["add_rmsnorm"] = 2 * n * (1 + steps)
+    out["decode_attention"] = n * steps
+    return out
+
+
+def run_full(card: str, images, wrappers: dict) -> dict:
+    """Phase 5: full-depth Emu1 through the runner, a few requests; the
+    interleaved and video-QA requests' launches held to `emu1_launches`.
     Returns the fingerprint of its tree (phase 19 evaluates the same
     tree)."""
     import torch
@@ -1423,6 +1470,26 @@ def run_full(card: str, images) -> dict:
                           + "What changes between these three frames?",
                           max_new_tokens=MAX_NEW, beam_size=1)
     report("3-image greedy", [out])
+    flows = [
+        ("interleaved 2 images beam5", lambda: runner.interleaved(
+            images[:2], INTERLEAVED, max_new_tokens=MAX_NEW)),
+        ("video 8 frames beam5", lambda: runner.video_qa(
+            images[:8], VIDEO_QUESTION, max_new_tokens=MAX_NEW)),
+    ]
+    for label, request in flows:
+        before = {n: w.launches for n, w in wrappers.items()}
+        out = request()
+        got = {n: w.launches - before[n] for n, w in wrappers.items()}
+        report(label, [out])
+        want = {n: 0 for n in wrappers}
+        want.update(emu1_launches(runner.cfg,
+                                  runner.last_stats["decode_steps"]))
+        if got != want:
+            raise AssertionError(f"phase 5 {label}: launches {got}, the "
+                                 f"structure gives {want}")
+        print(f"    prompt {runner.last_stats['prompt_len']} tokens; "
+              "launches as the structure gives them: "
+              f"{ {n: c for n, c in got.items() if c} }")
     decode_modes(runner, images, report)
     logits = runner.next_token_logits([images[0]], runner.caption_prompt())
     assert logits.shape == (1, vocab) and bool(torch.isfinite(logits).all())
@@ -1697,6 +1764,13 @@ def run_emu2_full(card: str, images):
     return chat
 
 
+# phase 8's card-side W4A8 witness, per call: each kernel's output within
+# this share of max|twin| of its plain twin's on the same inputs on the card
+# (phase 3's rtol for each kernel, without its atol)
+WITNESS_RTOL = {"matmul_q4": 0.01, "fused_swiglu_q4": 0.02,
+                "decode_attention": 0.01}
+
+
 def check_engine_two_layer(card: str) -> float:
     """Phase 8: the continuous engine's decode forms on a full-width
     Emu2-Chat int4 decoder cut to 2 layers, int8 KV cache, teacher-forced,
@@ -1704,11 +1778,25 @@ def check_engine_two_layer(card: str) -> float:
     rows, one mixed step (2 decode rows + a 32-token admission chunk) and 4
     decode steps, as the engine runs them. Limit stated before the first
     run: max |logit error| <= 0.08 * max|ref| (phase 6's int4 limit). Returns
-    the largest absolute logit error (phase 9's yardstick)."""
+    the largest absolute logit error (phase 9's yardstick).
+
+    Then the card-side W4A8 witness (`twin_witness` of
+    `tools/probe_w4a8_twins.py`): in the card's run,
+    every call of kernels F, G and D is held against its plain twin on the
+    same inputs on the card, so the comparison measures the kernels' error
+    alone, without the fp32-against-bf16 rounding of the check above. Limit
+    stated before its first run: each call's max |kernel - twin| <=
+    WITNESS_RTOL[kernel] * max|twin| (0.01 for F and D, 0.02 for G: phase
+    3's rtol). No logits-level comparison against the twins is made:
+    W4A8 re-quantizes every activation row to int8 at its own max, so one
+    bf16 ulp moved in 0.1% of one product's outputs moves these logits by
+    2-5% of their max (`python -m emu_tpu_torch.tools.probe_w4a8_twins`
+    prints that whole-run comparison)."""
     import torch
     from emu_tpu_torch.bridge import cast_tree
     from emu_tpu_torch.models import llama
     from emu_tpu_torch.pipelines.chat import EmuChatGeneration
+    from emu_tpu_torch.tools.probe_w4a8_twins import twin_witness
 
     t0 = time.perf_counter()
     cpu = EmuChatGeneration.from_config(instruct=True, seed=SEED,
@@ -1759,20 +1847,45 @@ def check_engine_two_layer(card: str) -> float:
             slots, pos = slots + 1, pos + 1
         return out
 
+    calls = []
     with torch.inference_mode():
         ref = run(dec_cpu, "cpu")
-        got = run(dec_gpu, "cuda")
+        with twin_witness(calls):
+            got = run(dec_gpu, "cuda")
     print(f"  2-layer full-width Emu2-Chat int4, int8 KV: "
           f"{time.perf_counter() - t0:.1f} s")
+
+    def margin(name, e, scale, rtol):
+        limit = rtol * scale
+        print(f"    {name}: margin {limit - e:.6g} ({e:.6g} of its "
+              f"{limit:.6g}, {e / limit:.4f} of the limit)")
+
     err = 0.0
     for name in ref:
         compare(f"engine_2layer_int8kv_{name}", got[name].cpu(), ref[name],
                 atol=0.0, rtol=0.08)
-        err = max(err, float((got[name].cpu().float() - ref[name]).abs()
-                             .max()))
+        e = float((got[name].cpu().float() - ref[name]).abs().max())
+        margin(f"{name} card vs CPU fp32", e, float(ref[name].abs().max()),
+               0.08)
+        err = max(err, e)
         agree = (got[name].cpu().float().argmax(-1) == ref[name].argmax(-1))
         print(f"    {name}: argmax agrees on {int(agree.sum())} of "
               f"{agree.numel()} rows")
+    print("  card-side W4A8 witness: each call of F, G, D against its plain "
+          f"twin on the same inputs on the card, limits {WITNESS_RTOL} of "
+          "max|twin|")
+    bad = []
+    for kernel, rtol in WITNESS_RTOL.items():
+        mine = [c for c in calls if c[0] == kernel]
+        if not mine:
+            raise AssertionError(f"phase 8 witness: no call of {kernel}")
+        worst = max(mine, key=lambda c: c[2] / max(c[3], 1e-30))
+        margin(f"{kernel}, {len(mine)} calls, worst at input "
+               f"{worst[1]}", worst[2], worst[3], rtol)
+        bad += [c for c in mine if not c[2] <= rtol * c[3]]
+    if bad:
+        raise AssertionError(f"phase 8 witness: calls above their limits: "
+                             f"{bad}")
     del dec_gpu
     torch.cuda.empty_cache()
     return err
@@ -3460,6 +3573,13 @@ def run_parallel(card: str) -> dict:
             failures.append(f"{label}: the ranks decoded different tokens")
         if part == "a" and not all(x["load"]["load_equal"] for x in res):
             failures.append(f"{label}: a rank's sharded load differs")
+    for r, rk in enumerate(ranks):
+        loads = {m: rk["parts"]["a"][m]["load"] for m in ("bf16", "int4")}
+        print(f"  (a) rank {r}: sharded load peak int4 "
+              f"{loads['int4']['load_peak_gb']:.3f} GB (6.73 GB when each "
+              "layer was quantized whole before its cut), bf16 "
+              f"{loads['bf16']['load_peak_gb']:.3f} GB; the rank's int4 tree "
+              f"{loads['int4']['rank_gb']:.3f} GB  [{card}]")
     for part in "abcd":
         print(f"  part {part}: {ranks[0]['parts'][part]['part_s']:.1f} s")
     if failures:
@@ -3709,7 +3829,7 @@ def main() -> int:
     images = [Image.fromarray(rng.randint(0, 256, (224 + 16 * i, 256, 3),
                                           dtype=np.uint8)) for i in range(8)]
     print("[4] 2-layer full-width Emu1: card bf16 vs CPU fp32")
-    check_two_layer(card, images[0])
+    check_two_layer(card, images)
 
     launches = {n: 0 for n in wrappers}
 
@@ -3721,7 +3841,7 @@ def main() -> int:
     emu1_path = ["attention", "fused_mlp", "add_rmsnorm", "decode_attention",
                  "fused_dense", "fused_dense_mma"]
     counts, emu1_fingerprint = drive("Emu1 caption", wrappers, emu1_path,
-                                     run_full, card, images)
+                                     run_full, card, images, wrappers)
     count(counts)
     print("[6] 2-layer full-width Emu2-Chat: card (bf16, int4) vs CPU fp32")
     count(drive("Emu2 2-layer bf16 and int4", wrappers,

@@ -322,10 +322,19 @@ def convert_emu1(sd_flat: Dict[str, torch.Tensor], cfg: Emu1Config,
 
 class _Cutter:
     """A converter's sharding (none without a mesh): each stacked layer is
-    cut to this rank's slice as it lands (`parallel.mesh.cut_layer`, after
-    the landing's fusion and quantization, on the device), and `record`
-    cuts the remaining leaves and writes the tree's `Shards` records, so a
-    rank holds its share of the tree and one whole layer at a time."""
+    cut to this rank's slice as it lands (`parallel.mesh.cut_layer`, on the
+    device), and `record` cuts the remaining leaves and writes the tree's
+    `Shards` records, so a rank holds its share of the tree and one whole
+    layer at a time.
+
+    A quantizing landing (`Landing`) is planned on the meta device first:
+    a float kernel whose quantized leaves are all cut over their output
+    columns, as the kernel itself is (fused planes per part), is cut before
+    it is quantized. Quantization is per output column, so this gives the
+    bits of quantizing the whole layer and then cutting it, with a rank's
+    columns of fp32 work in place of the whole plane's. Every other leaf
+    (the row-cut planes, which int8's per-column scales and int4's groups
+    span) is quantized whole and then cut."""
 
     def __init__(self, mesh, model: str, cfg):
         self.mesh, self.planned = mesh, {}
@@ -342,10 +351,72 @@ class _Cutter:
         from emu_tpu_torch.parallel.mesh import cut_layer
 
         def landing(tree):
+            if isinstance(land, Landing):
+                return self._quantize_cut(tree, path, n, land)
             tree = land(tree) if land is not None else tree
             return cut_layer(tree, path, n, self.mesh, self.rules,
                              self.layout, self.planned)
         return landing
+
+    def _quantize_cut(self, tree: dict, path: str, n: int, land: "Landing"):
+        from emu_tpu_torch.parallel.mesh import cut_layer, local_slice
+        mesh = self.mesh
+        floats = land.prepare(tree)
+        # the plans of the float leaves, and every landed leaf's plan (into
+        # `planned`) and local shape, from the shapes alone
+        float_plans = {}
+        cut_layer(_on_meta(floats), path, n, mesh, self.rules, self.layout,
+                  float_plans)
+        whole = land.quantize(_on_meta(floats))
+        local = cut_layer(whole, path, n, mesh, self.rules, self.layout,
+                          self.planned)
+        first = set()
+
+        def column_cut(plan):
+            """(axis, parts) of a plan that cuts the last dim alone."""
+            spec, parts = plan
+            return (None if spec[-1] is None or any(spec[:-1])
+                    else (spec[-1], parts))
+
+        def precut(f: dict, w: dict, sub: str) -> dict:
+            out = dict(f)
+            for k, v in f.items():
+                if isinstance(v, dict):
+                    out[k] = precut(v, w[k], f"{sub}/{k}")
+            if "kernel" not in f or "kernel" in w:
+                return out
+            spec, parts = float_plans[f"{sub}/kernel"]
+            landed = [q for q in w if q not in f]
+            by = column_cut((spec, parts))
+            if by is None or any(column_cut(self.planned[f"{sub}/{q}"]) != by
+                                 for q in landed):
+                return out
+            out["kernel"] = local_slice(f["kernel"], spec[1:], parts,
+                                        mesh).contiguous()
+            first.update(f"{sub}/{q}" for q in landed)
+            return out
+
+        cut_floats = precut(floats, whole, path)
+        del floats           # the whole fused planes, before any fp32 work
+        landed = land.quantize(cut_floats)
+        del cut_floats
+
+        def cut(t: dict, m: dict, sub: str) -> dict:
+            out = {}
+            for k, v in t.items():
+                p = f"{sub}/{k}"
+                if isinstance(v, dict):
+                    out[k] = cut(v, m[k], p)
+                    continue
+                spec, parts = self.planned[p]
+                if p not in first and any(a is not None for a in spec):
+                    v = local_slice(v, spec[1:], parts, mesh).contiguous()
+                if v.shape != m[k].shape:
+                    raise AssertionError(f"{p}: landed {tuple(v.shape)}, "
+                                         f"planned {tuple(m[k].shape)}")
+                out[k] = v
+            return out
+        return cut(landed, local, path)
 
     def record(self, tree: dict) -> dict:
         if self.mesh is None:
@@ -355,8 +426,25 @@ class _Cutter:
                             planned=self.planned)
 
 
+def _on_meta(tree: dict) -> dict:
+    return {k: _on_meta(v) if isinstance(v, dict)
+            else torch.empty_like(v, device="meta") for k, v in tree.items()}
+
+
+class Landing:
+    """A layer transform of `quantized_landing`: `prepare` (float to float,
+    the decoder's q/k/v and gate/up fusion) then `quantize`; calling it
+    runs both."""
+
+    def __init__(self, prepare, quantize):
+        self.prepare, self.quantize = prepare, quantize
+
+    def __call__(self, tree: dict) -> dict:
+        return self.quantize(self.prepare(tree))
+
+
 def quantized_landing(quantize: Optional[str]):
-    """(decoder layer, ViT block) transforms that give one layer the
+    """(decoder layer, ViT block) `Landing`s that give one layer the
     serving recipe of `ops.quant.quantize_model_params` as it lands: the
     decoder fused (qkv_proj, gate_up) and weight-only int8/int4, the tower
     W8A8; (None, None) without quantize."""
@@ -369,15 +457,17 @@ def quantized_landing(quantize: Optional[str]):
                          f"{Q.QUANTIZE_MODES}")
     bits = 4 if quantize == "int4" else 8
 
+    def fuse(t):
+        return llama.fuse_projections({"layers": t})["layers"]
+
     def decoder_layer(t):
-        fused = llama.fuse_projections({"layers": t})
-        return Q.quantize_tree(fused, bits=bits)["layers"]
+        return Q.quantize_tree({"layers": t}, bits=bits)["layers"]
 
     def vit_block(t):
         return Q.quantize_tree({"blocks": t}, Q.VIT_PATTERNS,
                                act_quant=True)["blocks"]
 
-    return decoder_layer, vit_block
+    return Landing(fuse, decoder_layer), Landing(lambda t: t, vit_block)
 
 
 def convert_emu2(sd_flat: Dict[str, torch.Tensor], cfg: Emu2Config,

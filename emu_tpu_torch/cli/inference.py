@@ -1,11 +1,17 @@
-"""Emu1 captioning / VQA runner, as `emu_tpu/cli/inference.py`: the
-reference's system prompts and [USER]/[ASSISTANT] template, images through
-`encode_image`, text through `generate` (beam 5 by default).
+"""Emu1 runner, as `emu_tpu/cli/inference.py`: captioning, VQA,
+interleaved-context QA and video QA with the reference's system prompts
+and [USER]/[ASSISTANT] template, images through `encode_image`, text
+through `generate` (beam 5 by default).
 
 Usage:
   python -m emu_tpu_torch.cli.inference --ckpt-path emu.bin \
       [--tokenizer-path tok/] [--instruct] [--image x.png]
   python -m emu_tpu_torch.cli.inference --device cuda --full [--image x.png]
+  python -m emu_tpu_torch.cli.inference --device cuda --full \
+      --interleaved "[<IMG_PLH>]A cat. [<IMG_PLH>]And this?" \
+      --image a.png --image b.png
+  python -m emu_tpu_torch.cli.inference --device cuda --full \
+      --frames f0.png f1.png f2.png --question "What happens?"
 With --ckpt-path it loads the Emu1 checkpoint (a `.bin`, `.safetensors` or
 an HF sharded directory; Emu-I's LoRA adapters are merged) and, with
 --tokenizer-path, the LLaMA tokenizer (else the hash-bucket
@@ -33,6 +39,15 @@ from emu_tpu_torch.mm_eval.trie import build_trie
 from emu_tpu_torch.models import emu1, llama
 from emu_tpu_torch.ops.layers import Init
 from emu_tpu_torch.pipelines import preprocess
+
+# the JAX CLI's video prompt (its `video_system_msg`), kept in the port
+video_system_msg = (
+    "You are a helpful assistant and you will be presented with a video "
+    "consisting of multiple chronological images: [IMG]ImageContent[/IMG]. "
+    "You will be able to see the video after I provide it to you. "
+    "Please answer my questions based on the given video.")
+# the marker an interleaved prompt puts where each image goes
+IMAGE_MARKER = "[<IMG_PLH>]"
 
 
 class Emu1Runner:
@@ -66,7 +81,8 @@ class Emu1Runner:
             e = self.model.encode_image(batch)
             image_embeds = e.reshape(-1, e.shape[-1])
         self.last_stats = {"encode_s": synced_clock(self.device) - t0,
-                           "images": len(images), "rows": len(texts)}
+                           "images": len(images), "rows": len(texts),
+                           "prompt_len": int(ids.shape[1])}
         return (torch.from_numpy(ids).to(self.device),
                 torch.from_numpy(mask).to(self.device), image_embeds)
 
@@ -152,6 +168,32 @@ class Emu1Runner:
                              max_new_tokens=max_new_tokens,
                              beam_size=beam_size, **decode)
 
+    def interleaved_prompt(self, text_with_placeholders: str) -> str:
+        """Each `[<IMG_PLH>]` marker becomes a full image placeholder."""
+        return text_with_placeholders.replace(IMAGE_MARKER, self.placeholder)
+
+    def interleaved(self, images, text_with_placeholders: str,
+                    max_new_tokens: int = 128, beam_size: int = 5,
+                    **decode) -> str:
+        """Images and text in one prompt: `images` in the order of the
+        markers, no system message."""
+        return self.generate(images,
+                             self.interleaved_prompt(text_with_placeholders),
+                             system="", max_new_tokens=max_new_tokens,
+                             beam_size=beam_size, **decode)
+
+    def video_prompt(self, n_frames: int, question: str) -> str:
+        """One full image placeholder per frame, then the question."""
+        return self.placeholder * n_frames + question
+
+    def video_qa(self, frames, question: str, max_new_tokens: int = 64,
+                 beam_size: int = 5, **decode) -> str:
+        """A question about a video given as its frames, in order."""
+        return self.generate(frames, self.video_prompt(len(frames), question),
+                             system=video_system_msg,
+                             max_new_tokens=max_new_tokens,
+                             beam_size=beam_size, **decode)
+
     def candidate_trie(self, candidates: Sequence[str]) -> dict:
         """The trie over the candidate answers' token sequences (each
         " answer" + EOS), as the JAX eval model's VizWiz answerability
@@ -231,6 +273,11 @@ def build_runner(full: bool = False, device="cuda", seed: int = 0,
     return Emu1Runner(emu1.Emu1(cfg, tree), cfg, tokenizer_for(cfg))
 
 
+def load_images(paths: Sequence[str]) -> list:
+    from PIL import Image
+    return [Image.open(p).convert("RGB") for p in paths]
+
+
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--ckpt-path", default=None,
@@ -244,28 +291,55 @@ def main():
                    help="full-size Emu1 (random weights) instead of tiny")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--image", default=None, help="image for captioning/VQA")
+    p.add_argument("--image", action="append", default=None,
+                   help="image for captioning/VQA; with --interleaved, one "
+                        "per [<IMG_PLH>] marker, in order")
     p.add_argument("--question", default=None)
+    p.add_argument("--interleaved", default=None,
+                   help="a prompt with [<IMG_PLH>] where each --image goes")
+    p.add_argument("--frames", nargs="+", default=None,
+                   help="image paths read as one video, in order (video QA "
+                        "of --question)")
     p.add_argument("--max-new-tokens", type=int, default=32)
     args = p.parse_args()
+    if args.interleaved is not None and args.frames:
+        p.error("--interleaved and --frames are two different flows")
+    images = load_images(args.image or [])
+    if args.interleaved is not None:
+        if args.interleaved.count(IMAGE_MARKER) != len(images):
+            p.error(f"--interleaved has {args.interleaved.count(IMAGE_MARKER)}"
+                    f" {IMAGE_MARKER} markers and {len(images)} --image")
+    elif args.frames:
+        if images:
+            p.error("--frames takes the video's images; drop --image")
+    elif len(images) > 1:
+        p.error("captioning and VQA take one --image")
 
     runner = build_runner(full=args.full, device=args.device, seed=args.seed,
                           ckpt_path=args.ckpt_path,
                           tokenizer_path=args.tokenizer_path,
                           instruct=args.instruct)
-    from PIL import Image
-    if args.image:
-        img = Image.open(args.image).convert("RGB")
-    else:
-        img = Image.fromarray(np.full((224, 224, 3), 128, "uint8"))
-        print("(no --image given; using a gray test image)")
+    n = args.max_new_tokens
     t0 = time.perf_counter()
-    if args.question:
-        print("===> vqa:", runner.vqa(img, args.question,
-                                      max_new_tokens=args.max_new_tokens))
+    if args.interleaved is not None:
+        print("===> interleaved:", runner.interleaved(
+            images, args.interleaved, max_new_tokens=n))
+    elif args.frames:
+        print("===> video_qa:", runner.video_qa(
+            load_images(args.frames),
+            args.question or "What happens in the video?", max_new_tokens=n))
     else:
-        print("===> caption:", runner.caption(
-            img, max_new_tokens=args.max_new_tokens))
+        if images:
+            img = images[0]
+        else:
+            from PIL import Image
+            img = Image.fromarray(np.full((224, 224, 3), 128, "uint8"))
+            print("(no --image given; using a gray test image)")
+        if args.question:
+            print("===> vqa:", runner.vqa(img, args.question,
+                                          max_new_tokens=n))
+        else:
+            print("===> caption:", runner.caption(img, max_new_tokens=n))
     print(f"({time.perf_counter() - t0:.2f} s; {runner.last_stats})")
 
 

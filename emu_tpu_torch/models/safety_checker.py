@@ -160,11 +160,16 @@ class SafetyChecker:
         self.params, self.cfg = params, cfg
         self.device = params["visual_projection"]["kernel"].device
 
+    def clip_preprocess(self, images) -> torch.Tensor:
+        """[B, H, W, 3] in [0, 1] → CLIP-normalized [B, 224, 224, 3] fp32
+        on the checker's device (`clip_preprocess` at its image size)."""
+        return clip_preprocess(images, self.cfg.image_size, self.device)
+
     @torch.inference_mode()
     def flags(self, images: np.ndarray) -> torch.Tensor:
         """[B] bool on the device: any concept score above its threshold."""
         p = self.params
-        clip_in = clip_preprocess(images, self.cfg.image_size, self.device)
+        clip_in = self.clip_preprocess(images)
         embeds = clip_image_embeds(p, self.cfg, clip_in)
         special = (_cosine(embeds, p["special_care_embeds"])
                    - p["special_care_embeds_weights"][None].to(embeds.dtype))

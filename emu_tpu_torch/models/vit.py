@@ -218,12 +218,14 @@ def _block(cfg: VisionConfig, p: dict, x, rope_tables=None,
 
 
 def forward_features(params: dict, cfg: VisionConfig, images,
-                     remat: bool = False):
+                     compute_dtype=None, remat: bool = False):
     """[B, H, W, 3] normalized images → [B, n_patch + 1, width], computed
     in the images' dtype (the weights are cast to it), as the JAX ViT does;
-    callers cast the images to choose it (its `compute_dtype`). remat=True
+    compute_dtype, when given, casts the images to it first. remat=True
     recomputes each block in the backward (torch.utils.checkpoint), the
     JAX package's per-block jax.checkpoint."""
+    if compute_dtype is not None:
+        images = images.to(compute_dtype)
     x = L.patch_embed(params["patch_embed"], images, cfg.patch_size)
     cls = params["cls_token"].to(x.dtype).expand(x.shape[0], 1, cfg.width)
     x = torch.cat([cls, x], dim=1)
@@ -250,6 +252,13 @@ def forward_features(params: dict, cfg: VisionConfig, images,
         else:
             x = _block(cfg, p, x, rope_tables, rel_bias)
     return x
+
+
+def forward_head(params: dict, cfg: VisionConfig, features):
+    """The classifier path (cls token → norm → head) of a tower built with
+    `num_classes > 0`; the Emu composites do not use it."""
+    x = L.layer_norm(params["norm"], features, cfg.ln_eps)
+    return L.dense(params["head"], x[:, 0])
 
 
 # ---------------------------------------------------------------------------

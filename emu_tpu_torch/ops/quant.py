@@ -93,17 +93,24 @@ def quantize_kernel_int4(kernel: torch.Tensor, group_size: int = 128) -> dict:
     """[..., in, out] → fold-packed int4 with per-(group, out) fp32 scales.
 
     Packed row i holds input row i in the low nibble (stored value + 8) and
-    row i + in/2 in the high nibble (two's complement)."""
+    row i + in/2 in the high nibble (two's complement). One fp32 copy of
+    the kernel is the only temporary of its size (divided, rounded and
+    clamped in place, then held as int8), so a loader can quantize a
+    whole layer on the card beside the model."""
     *lead, n_in, n_out = kernel.shape
     assert n_in % group_size == 0 and (n_in // 2) % group_size == 0
-    kf = kernel.float().reshape(*lead, n_in // group_size, group_size, n_out)
-    scale = (kf.abs().amax(dim=-2) * INV7).clamp_min(1e-8)
-    q = torch.round(kf / scale[..., None, :]).clamp(-7, 7).to(torch.int32)
+    kf = kernel.to(torch.float32, copy=True).reshape(
+        *lead, n_in // group_size, group_size, n_out)
+    lo, hi = kf.aminmax(dim=-2)
+    scale = (torch.maximum(hi, lo.neg_()) * INV7).clamp_min(1e-8)
+    del lo, hi
+    q = kf.div_(scale[..., None, :]).round_().clamp_(-7, 7).to(torch.int8)
+    del kf
     q = q.reshape(*lead, n_in, n_out)
     half = n_in // 2
-    low = (q[..., :half, :] + 8) & 0x0F
-    high = q[..., half:, :] & 0x0F
-    packed = (low | (high << 4)).to(torch.uint8).view(torch.int8)
+    low = (q[..., :half, :] + 8).view(torch.uint8)
+    high = q[..., half:, :].view(torch.uint8) & 0x0F
+    packed = (low | (high << 4)).view(torch.int8)
     return {"kernel_q4": packed, "scale4": scale}
 
 
@@ -130,19 +137,24 @@ def int4_group_size(n_in: int, group_size: int = 128) -> int:
     return gs
 
 
-def quantize_dense(kernel: torch.Tensor, form: str) -> dict:
+def quantize_dense(kernel: torch.Tensor, form: str, group_size: int = 128,
+                   chunked: bool = True) -> dict:
     """One kernel (any leading dims) → the quantized param entries of
-    `form` ("int8" weight-only, "w8a8" or "int4"), one leading slice at a
-    time so the fp32 temporaries stay one layer in size."""
-    if kernel.dim() < 3:
-        return _quantize_slice(kernel, form)
-    parts = [_quantize_slice(kernel[i], form) for i in range(kernel.shape[0])]
+    `form` ("int8" weight-only, "w8a8" or "int4", its groups of
+    `group_size` rows clamped by `int4_group_size`). chunked: one leading
+    slice at a time, so the fp32 temporaries stay one layer in size; the
+    same bits as the whole kernel at once."""
+    if kernel.dim() < 3 or not chunked:
+        return _quantize_slice(kernel, form, group_size)
+    parts = [_quantize_slice(kernel[i], form, group_size)
+             for i in range(kernel.shape[0])]
     return {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
 
 
-def _quantize_slice(kernel, form):
+def _quantize_slice(kernel, form, group_size: int = 128):
     if form == "int4":
-        return quantize_kernel_int4(kernel, int4_group_size(kernel.shape[-2]))
+        return quantize_kernel_int4(
+            kernel, int4_group_size(kernel.shape[-2], group_size))
     q = quantize_kernel(kernel)
     if form == "w8a8":
         return {"kernel_w8a8": q["kernel_q8"], "scale": q["scale"]}
@@ -150,13 +162,23 @@ def _quantize_slice(kernel, form):
 
 
 def quantize_tree(params, patterns: Sequence[str] = DEFAULT_PATTERNS,
-                  bits: int = 8, act_quant: bool = False):
+                  bits: int = 8, group_size: int = 128,
+                  act_quant: bool = False, layer_chunked: bool = False):
     """Quantize the matmul kernels whose path ("a/b/kernel") matches one of
-    `patterns`: bits=4 fold-packed int4, else int8 weight-only, or W8A8
-    with act_quant=True. Only matmul kernels (at most 3-D) are taken, never
-    a 4-D conv kernel. Other leaves (and quantized dicts) pass through;
-    lists (the UNet's block lists) are walked with their indices in the
-    path ("down_blocks/1/attentions/0/...")."""
+    `patterns`: bits=4 fold-packed int4 in groups of `group_size` rows
+    (clamped to a divisor of the fold half, as `int4_group_size`), else
+    int8 weight-only, or W8A8 with act_quant=True. Only matmul kernels (at
+    most 3-D) are taken, never a 4-D conv kernel. layer_chunked=True
+    quantizes a stacked (3-D) kernel one leading slice at a time (the same
+    bits, one layer's fp32 temporaries); the default, as the JAX package's,
+    holds a whole stack's fp32 temporaries, so a caller quantizing a
+    full-size stacked tree passes True, as `quantize_model_params` does.
+    Other leaves (and quantized dicts)
+    pass through; lists (the UNet's block lists) are walked with their
+    indices in the path ("down_blocks/1/attentions/0/...").
+
+    Kernel F takes groups of a multiple of 128 rows (`q4_matmul.q4_plan`);
+    `layers.dense` dequantizes a tree quantized in smaller groups."""
     regexes = [re.compile(p) for p in patterns]
     form = "int4" if bits == 4 else ("w8a8" if act_quant else "int8")
 
@@ -170,7 +192,7 @@ def quantize_tree(params, patterns: Sequence[str] = DEFAULT_PATTERNS,
                 out[k] = walk(v, sub)
             elif (k == "kernel" and v.dim() <= 3
                   and any(r.search(sub) for r in regexes)):
-                out.update(quantize_dense(v, form))
+                out.update(quantize_dense(v, form, group_size, layer_chunked))
             else:
                 out[k] = v
         return out
@@ -193,8 +215,9 @@ def quantize_model_params(params: dict, mode: str) -> dict:
     out = dict(params)
     if "visual" in out:
         out["visual"] = quantize_tree(out["visual"], VIT_PATTERNS,
-                                      act_quant=True)
+                                      act_quant=True, layer_chunked=True)
     if "decoder" in out:
         out["decoder"] = quantize_tree(out["decoder"],
-                                       bits=4 if mode == "int4" else 8)
+                                       bits=4 if mode == "int4" else 8,
+                                       layer_chunked=True)
     return out

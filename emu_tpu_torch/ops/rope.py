@@ -39,6 +39,12 @@ def apply_rope_rows(q, k, c, s):
             (kf * c + _rotate_half(kf) * s).to(k.dtype))
 
 
+def apply_llama_rope(q, k, cos, sin, positions):
+    """RoPE on q/k [B, S, H, D] at absolute positions [B, S]: the rows
+    gathered, then applied."""
+    return apply_rope_rows(q, k, *gather_rope_rows(cos, sin, positions))
+
+
 def vision_rope_tables(half_head_dim: int, pt_seq_len: int,
                        ft_seq_len: int | None = None, theta: float = 10000.0
                        ) -> Tuple[np.ndarray, np.ndarray]:

@@ -242,6 +242,29 @@ def _walk(tree, path=""):
             yield sub, k, tree, v
 
 
+def tree_paths_and_leaves(tree) -> list:
+    """[(path, leaf)] of every leaf in the JAX package's flattening order
+    (dict keys sorted, lists and tuples by index; "a/b/0" paths); None is
+    an empty subtree and the `Shards` records are skipped."""
+    out = []
+
+    def visit(node, path):
+        if node is None:
+            return
+        if isinstance(node, dict):
+            items = sorted((k, v) for k, v in node.items() if k != TP_KEY)
+        elif isinstance(node, (list, tuple)):
+            items = enumerate(node)
+        else:
+            out.append((path, node))
+            return
+        for k, v in items:
+            visit(v, f"{path}/{k}" if path else str(k))
+
+    visit(tree, "")
+    return out
+
+
 def sharding_tree(params, mesh: Mesh, rules, layout):
     """The tree of every leaf's spec: a tuple of axis names (or None), one
     per dim, after the drop rules (the JAX `sharding_tree`'s PartitionSpecs
