@@ -33,12 +33,13 @@ import torch
 from emu_tpu_torch import tokenization as T
 from emu_tpu_torch.checkpoint import load_emu1_checkpoint
 from emu_tpu_torch.config import Emu1Config
-from emu_tpu_torch.generation.engine import GenerationConfig, synced_clock
+from emu_tpu_torch.generation.engine import GenerationConfig
 from emu_tpu_torch.mm_eval.engine import image_system_msg  # noqa: F401
 from emu_tpu_torch.mm_eval.trie import build_trie
 from emu_tpu_torch.models import emu1, llama
 from emu_tpu_torch.ops.layers import Init
 from emu_tpu_torch.pipelines import preprocess
+from emu_tpu_torch.utils.profiling import RECORDER, Stats, mark
 
 # the JAX CLI's video prompt (its `video_system_msg`), kept in the port
 video_system_msg = (
@@ -60,7 +61,8 @@ class Emu1Runner:
         self.device = model.decoder.norm.device
         self.dtype = model.decoder.norm.dtype
         self.placeholder = "[IMG]" + "<image>" * cfg.n_causal + "[/IMG]"
-        self.last_stats: dict = {}
+        self.last_stats: dict = Stats()
+        RECORDER.anchor(self.device)
 
     def _prompt(self, text: str, system: str, instruct: bool) -> str:
         return (f"{system} [USER]: {text} [ASSISTANT]:".strip() if instruct
@@ -72,17 +74,21 @@ class Emu1Runner:
             [self._prompt(t, system, instruct) for t in texts],
             padding_side="left")
         image_embeds = None
-        t0 = synced_clock(self.device)
+        m0 = mark(self.device)
         if images:
-            # the ViT computes in its input's dtype: feed it the model's
-            batch = torch.from_numpy(preprocess.preprocess_batch(
-                images, self.cfg.vision.image_size)).to(self.device,
-                                                        self.dtype)
-            e = self.model.encode_image(batch)
+            # the host's preprocessing and upload, then the tower and the
+            # Causal Former on the card
+            with RECORDER.span("pipeline.preprocess"):
+                # the ViT computes in its input's dtype: feed it the model's
+                batch = torch.from_numpy(preprocess.preprocess_batch(
+                    images, self.cfg.vision.image_size)).to(self.device,
+                                                            self.dtype)
+            with RECORDER.span("pipeline.encode", self.device):
+                e = self.model.encode_image(batch)
             image_embeds = e.reshape(-1, e.shape[-1])
-        self.last_stats = {"encode_s": synced_clock(self.device) - t0,
-                           "images": len(images), "rows": len(texts),
-                           "prompt_len": int(ids.shape[1])}
+        self.last_stats = Stats(images=len(images), rows=len(texts),
+                                prompt_len=int(ids.shape[1]))
+        self.last_stats.interval("encode_s", m0, mark(self.device))
         return (torch.from_numpy(ids).to(self.device),
                 torch.from_numpy(mask).to(self.device), image_embeds)
 
@@ -100,7 +106,7 @@ class Emu1Runner:
         beam_size > 1: beam sampling) from `generator`; penalty_alpha with
         top_k > 1 and one beam is contrastive search; trie constrains a
         greedy or sampled decode (`build_trie`). Timings of the call land
-        in `last_stats`."""
+        in `last_stats` (card times resolve once the ids are read)."""
         ids, mask, image_embeds = self._inputs(images, texts, system,
                                                instruct)
         self.last_stats["beams"] = max(beam_size, 1)
@@ -117,8 +123,9 @@ class Emu1Runner:
 
     def generate_batch(self, images: Sequence, texts: Sequence[str],
                        **kw) -> List[str]:
-        out = self.generate_ids(images, texts, **kw)
-        return [s.strip() for s in self.tokenizer.batch_decode(out.tolist())]
+        out = self.generate_ids(images, texts, **kw).tolist()
+        self.last_stats.settle()
+        return [s.strip() for s in self.tokenizer.batch_decode(out)]
 
     def generate(self, images, text_sequence: str, system: str = "",
                  instruct: bool = True, max_new_tokens: int = 128,

@@ -24,6 +24,15 @@ A tree sharded over "model" (`parallel.shard_params`) serves from a mesh
 slice: each rank's pool caches its kv heads, and every rank of the group
 runs the same admissions and steps (one process a rank, the same requests
 submitted to each) and records the same tokens.
+
+Every decode, mixed and prefill step is a record of `profiling.RECORDER`
+("engine.decode", "engine.mixed", "engine.prefill": a host span and a CUDA
+event pair) with the rows it computed ("rows": max_slots, max_slots x
+chunk_size, the bucket x the prefill's rows) and, once its results are
+read, the rows that carried a token ("useful": active decode rows plus
+the chunk's or the prompts' real tokens). A request's record ("request",
+the serving helper's, else the engine's own) gets its "first" and "last"
+token marks: the steps that made them, whose device ends time them.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from emu_tpu_torch.models import llama
+from emu_tpu_torch.utils.profiling import RECORDER, Record
 
 
 @dataclass
@@ -45,6 +55,7 @@ class _Request:
     max_new: int
     tokens: List = field(default_factory=list)   # ints, or device scalars
     done: bool = False
+    record: Optional[Record] = None     # the recorder's "request"
 
 
 def _bucket(n: int, buckets) -> int:
@@ -86,6 +97,7 @@ class ContinuousEngine:
         self.max_prefill_rows = max_prefill_rows
         self._admissions: List[dict] = []
         self.device = params["norm"].device
+        RECORDER.anchor(self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._ids = itertools.count()
         self.requests: Dict[int, _Request] = {}
@@ -298,7 +310,8 @@ class ContinuousEngine:
         return req.req_id
 
     @torch.no_grad()
-    def submit_many(self, reqs, temps: Optional[List[float]] = None
+    def submit_many(self, reqs, temps: Optional[List[float]] = None,
+                    records: Optional[List[Optional[Record]]] = None
                     ) -> List[int]:
         """Admit several requests at once: (embeds, mask, max_new[,
         temperature]) tuples, at most free_slots() of them. One batched
@@ -309,13 +322,17 @@ class ContinuousEngine:
         admitted, so a burst that raises leaves no slot taken; a caller
         that has checked each row already (the serving helper, which
         fails only the bad request) passes the temperatures
-        `check_request` returned as `temps`."""
+        `check_request` returned as `temps`, and its requests' recorder
+        records (`profiling.Record`, queued when they arrived) as
+        `records`."""
         if len(reqs) > self.free_slots():
             raise ValueError(f"{len(reqs)} requests > {self.free_slots()} "
                              "free slots")
         if temps is None:
             temps = [self.check_request(*r[:3], r[3] if len(r) > 3 else None)
                      for r in reqs]
+        if records is None:
+            records = [None] * len(reqs)
         ids: List[Optional[int]] = [None] * len(reqs)
         groups: Dict[int, List] = {}
         free = [i for i, r in enumerate(self.slot_req) if r is None]
@@ -324,7 +341,7 @@ class ContinuousEngine:
             s = embeds.shape[1]
             if self.chunk_size and s > self.buckets[-1]:
                 ids[j] = self._submit_chunked(
-                    free.pop(0), embeds, mask, max_new, temp)
+                    free.pop(0), embeds, mask, max_new, temp, records[j])
                 continue
             groups.setdefault(_bucket(s, self.buckets), []).append(
                 (j, (embeds, mask, max_new, temp)))
@@ -334,17 +351,32 @@ class ContinuousEngine:
                 sub = group[at:at + cap]
                 slots = [free.pop(0) for _ in sub]
                 firsts, group_reqs = self._prefill_rows(
-                    [row for _, row in sub], slots)
+                    [row for _, row in sub], slots,
+                    [records[j] for j, _ in sub])
                 for i, (req, slot) in enumerate(zip(group_reqs, slots)):
                     req.tokens.append(firsts[i])   # device scalar: deferred
                     self.slot_req[slot] = req.req_id
                     ids[sub[i][0]] = req.req_id
         return ids
 
-    def _prefill_rows(self, group, slots):
+    def _new_request(self, prompt_len: int, max_new: int,
+                     record: Optional[Record]) -> _Request:
+        """Register a request; `record` is its recorder record (the serving
+        helper's, queued earlier), else one opened now, queued and admitted
+        at once."""
+        if record is None:
+            record = RECORDER.open("request")
+            if record is not None:
+                record.marks["admitted"] = record.start
+        req = _Request(next(self._ids), prompt_len, max_new, record=record)
+        self.requests[req.req_id] = req
+        return req
+
+    def _prefill_rows(self, group, slots, records=None):
         """Pad the group to a power-of-two row count by duplicating row 0,
         run one batched prefill; returns (first tokens [p], requests).
-        Bumps each slot's generation."""
+        Bumps each slot's generation. `records`: the requests' recorder
+        records, where the caller has them."""
         s_b = _bucket(max(e.shape[1] for e, *_ in group), self.buckets)
         n = len(group)
         p = 1 << (n - 1).bit_length()
@@ -360,20 +392,23 @@ class ContinuousEngine:
             masks.append(masks[0])
             max_news.append(max_news[0])
             temps.append(temps[0])
+        group_reqs = [self._new_request(embeds.shape[1], max_new, rec)
+                      for (embeds, _, max_new, _), rec in zip(
+                          group, records or [None] * n)]
         dev = self.device
-        firsts = self._prefill(
-            torch.stack(rows).to(dev), torch.stack(masks).to(dev), s_b,
-            torch.tensor(list(slots) + [slots[0]] * (p - n), device=dev),
-            torch.tensor(max_news, device=dev),
-            torch.tensor(temps, dtype=torch.float32, device=dev),
-            torch.tensor([i < n for i in range(p)], device=dev))
-        group_reqs = []
-        for (embeds, _, max_new, _), slot in zip(group, slots):
-            req = _Request(next(self._ids), embeds.shape[1], max_new)
-            self.requests[req.req_id] = req
+        with RECORDER.span("engine.prefill", dev) as step:
+            firsts = self._prefill(
+                torch.stack(rows).to(dev), torch.stack(masks).to(dev), s_b,
+                torch.tensor(list(slots) + [slots[0]] * (p - n), device=dev),
+                torch.tensor(max_news, device=dev),
+                torch.tensor(temps, dtype=torch.float32, device=dev),
+                torch.tensor([i < n for i in range(p)], device=dev))
+        _step_rows(step, s_b * p, sum(r.prompt_len for r in group_reqs))
+        _useful(step, 0)
+        for req, slot in zip(group_reqs, slots):
             self._slot_gen[slot] += 1
             self._dispatched[slot] = 1          # the prefill's first token
-            group_reqs.append(req)
+            _first_token(req, step)
         return firsts, group_reqs
 
     def retirements_pending(self) -> bool:
@@ -400,7 +435,8 @@ class ContinuousEngine:
         return max(floor, min(max_steps, min(rems)))
 
     def _submit_chunked(self, slot: int, inputs_embeds, attention_mask,
-                        max_new: int, temp: float = 0.0) -> int:
+                        max_new: int, temp: float = 0.0,
+                        record: Optional[Record] = None) -> int:
         valid = attention_mask[0].bool().to(inputs_embeds.device)
         emb = inputs_embeds[0][valid]                    # drop padding
         s = emb.shape[0]
@@ -409,8 +445,7 @@ class ContinuousEngine:
         st["slot_mask"][slot] = False
         for key in ("write_idx", "position", "active", "n_generated"):
             st[key][slot] = 0
-        req = _Request(next(self._ids), s, max_new)
-        self.requests[req.req_id] = req
+        req = self._new_request(s, max_new, record)
         self._slot_gen[slot] += 1
         self.slot_req[slot] = req.req_id      # reserve through admission
         self._admissions.append({"req": req, "slot": slot, "embeds": emb,
@@ -420,7 +455,7 @@ class ContinuousEngine:
 
     def _dispatch_mixed(self):
         """Dispatch the head admission's next chunk; returns (out_tok,
-        was_active, first, final, admission)."""
+        was_active, first, final, admission, the step's record)."""
         a = self._admissions[0]
         q = self.chunk_size
         chunk = a["embeds"][a["offset"]:a["offset"] + q]
@@ -428,8 +463,12 @@ class ContinuousEngine:
         final = a["offset"] + qlen >= a["embeds"].shape[0]
         if qlen < q:
             chunk = F.pad(chunk, (0, 0, 0, q - qlen))
-        out_tok, was_active, first = self._mixed(
-            chunk, a["slot"], qlen, final, a["max_new"], a["temp"])
+        with RECORDER.span("engine.mixed", self.device) as step:
+            out_tok, was_active, first = self._mixed(
+                chunk, a["slot"], qlen, final, a["max_new"], a["temp"])
+        _step_rows(step, self.max_slots * q, qlen)
+        if final:
+            _first_token(a["req"], step)
         for slot, rid in enumerate(self.slot_req):
             if rid is not None and slot != a["slot"]:
                 self._dispatched[slot] += 1
@@ -437,7 +476,7 @@ class ContinuousEngine:
         if final:
             self._admissions.pop(0)
             self._dispatched[a["slot"]] = 1
-        return out_tok, was_active, first, final, a
+        return out_tok, was_active, first, final, a, step
 
     def _finish_admission(self, a, first: int) -> None:
         req = a["req"]
@@ -449,17 +488,19 @@ class ContinuousEngine:
     def _step_mixed(self) -> int:
         """One mixed step: the head admission consumes a chunk, everyone
         else decodes. Returns #decode slots advanced."""
-        out_tok, was_active, first, final, a = self._dispatch_mixed()
-        advanced = self._record(out_tok, was_active)
+        out_tok, was_active, first, final, a, step = self._dispatch_mixed()
+        advanced = self._record(out_tok, was_active, step)
         if final:
             self._finish_admission(a, int(first))
         return advanced
 
-    def _record(self, out_tok, was_active) -> int:
-        """Append each advanced slot's token; retire finished ones."""
+    def _record(self, out_tok, was_active, step: Optional[Record]) -> int:
+        """Append each advanced slot's token; retire finished ones.
+        `step` is the step's record."""
         out_tok = out_tok.tolist()
         was_active = was_active.tolist()
         still = self.state["active"].tolist()
+        _useful(step, sum(was_active))
         advanced = 0
         for slot, rid in enumerate(self.slot_req):
             if rid is None:
@@ -468,6 +509,7 @@ class ContinuousEngine:
             if was_active[slot]:
                 advanced += 1
                 req.tokens.append(out_tok[slot])
+                _last_token(req, step)
             elif not req.tokens:
                 continue    # chunked admission still streaming its prompt
             # a deferred admission whose first token ended it was never
@@ -488,13 +530,16 @@ class ContinuousEngine:
         while self._admissions:
             recs.append(self._dispatch_mixed())
         fetched = [(o.tolist(), w.tolist(), int(f))
-                   for o, w, f, _, _ in recs]
+                   for o, w, f, _, _, _ in recs]
         still = self.state["active"].tolist()
-        for (_, _, _, final, a), (out_tok, was_active, first) in zip(
+        for (_, _, _, final, a, step), (out_tok, was_active, first) in zip(
                 recs, fetched):
+            _useful(step, sum(was_active))
             for slot, rid in enumerate(self.slot_req):
                 if rid is not None and was_active[slot]:
-                    self.requests[rid].tokens.append(out_tok[slot])
+                    req = self.requests[rid]
+                    req.tokens.append(out_tok[slot])
+                    _last_token(req, step)
             if final:
                 self._finish_admission(a, first)
         for slot, rid in enumerate(self.slot_req):
@@ -504,6 +549,14 @@ class ContinuousEngine:
                 self.slot_req[slot] = None
         return len(recs)
 
+    def _decode_step(self):
+        """`_step_body` as the recorder's "engine.decode" step: (tokens,
+        active flags, its record)."""
+        with RECORDER.span("engine.decode", self.device) as step:
+            out_tok, was_active = self._step_body()
+        _step_rows(step, self.max_slots)
+        return out_tok, was_active, step
+
     @torch.no_grad()
     def step(self) -> int:
         """Advance every active slot one token. Returns #slots advanced."""
@@ -512,8 +565,7 @@ class ContinuousEngine:
         for slot, rid in enumerate(self.slot_req):
             if rid is not None:
                 self._dispatched[slot] += 1
-        out_tok, was_active = self._step_body()
-        return self._record(out_tok, was_active)
+        return self._record(*self._decode_step())
 
     @torch.no_grad()
     def step_block(self, n_steps: int):
@@ -526,9 +578,10 @@ class ContinuousEngine:
         if self._admissions:
             raise RuntimeError(
                 "chunked admissions in flight; drain with step() first")
-        rows = []
+        rows, steps = [], []
         for _ in range(n_steps):
-            out_tok, was_active = self._step_body()
+            out_tok, was_active, step = self._decode_step()
+            steps.append(step)
             rows.append(out_tok[None])
             rows.append(was_active[None].long())
         for slot, rid in enumerate(self.slot_req):
@@ -537,7 +590,7 @@ class ContinuousEngine:
         # [n_steps tokens; n_steps active flags; active now]
         packed = torch.cat(rows[0::2] + rows[1::2]
                            + [self.state["active"][None].long()])
-        return packed, n_steps, tuple(self._slot_gen)
+        return packed, n_steps, tuple(self._slot_gen), steps
 
     def record_block(self, block) -> int:
         """Read + bookkeep one step_block result: append each advanced
@@ -550,10 +603,12 @@ class ContinuousEngine:
         """Record several queued step_block results, in dispatch order."""
         advanced = 0
         fetched = [b[0].cpu().numpy() for b in blocks]
-        for packed, (_, n_steps, gens) in zip(fetched, blocks):
+        for packed, (_, n_steps, gens, steps) in zip(fetched, blocks):
             toks = packed[:n_steps]
             actives = packed[n_steps:2 * n_steps].astype(bool)
             still = packed[2 * n_steps].astype(bool)
+            for step, live in zip(steps, actives):
+                _useful(step, int(live.sum()))
             for slot, rid in enumerate(self.slot_req):
                 if rid is None or gens[slot] != self._slot_gen[slot]:
                     continue
@@ -562,6 +617,7 @@ class ContinuousEngine:
                 if live.any():
                     req.tokens.extend(int(t) for t in toks[live, slot])
                     advanced += int(live.sum())
+                    _last_token(req, steps[int(live.nonzero()[0][-1])])
                 # gen match: `still` speaks for the current request,
                 # including a deferred admission that ended on its first
                 # token
@@ -575,7 +631,9 @@ class ContinuousEngine:
         Deferred first tokens (submit_many) are read here."""
         out = {}
         for rid in [r for r, q in self.requests.items() if q.done]:
-            out[rid] = [int(t) for t in self.requests.pop(rid).tokens]
+            req = self.requests.pop(rid)
+            out[rid] = [int(t) for t in req.tokens]
+            RECORDER.close(req.record, tokens=len(out[rid]))
         return out
 
     def run_until_drained(self, max_steps: int = 10_000):
@@ -584,3 +642,35 @@ class ContinuousEngine:
                     and all(r is None for r in self.slot_req)):
                 break
         return self.finished()
+
+
+# -- the recorder's counts, where the results are already on the host ------
+
+
+def _step_rows(step: Optional[Record], rows: int, prompt: int = 0) -> None:
+    """A step's rows computed and the prompt tokens among them (a mixed
+    step's chunk, a prefill's prompts)."""
+    if step is None:
+        return
+    step.counts.update(rows=rows, prompt=prompt)
+    RECORDER.count("engine.rows", rows)
+
+
+def _useful(step: Optional[Record], active: int) -> None:
+    """A step's rows that carried a token, once its results are read: its
+    active decode rows plus its prompt tokens."""
+    if step is None:
+        return
+    n = active + step.counts.get("prompt", 0)
+    step.counts["useful"] = n
+    RECORDER.count("engine.useful_rows", n)
+
+
+def _first_token(req: _Request, step: Optional[Record]) -> None:
+    if req.record is not None and step is not None:
+        req.record.marks["first"] = req.record.marks["last"] = step
+
+
+def _last_token(req: _Request, step: Optional[Record]) -> None:
+    if req.record is not None and step is not None:
+        req.record.marks["last"] = step

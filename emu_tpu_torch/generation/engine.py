@@ -22,13 +22,13 @@ the ranks keep the same tokens.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
 
 from emu_tpu_torch.generation import logits_process as lp
+from emu_tpu_torch.utils.profiling import RECORDER, Stats, mark
 
 
 @dataclass(frozen=True)
@@ -223,20 +223,15 @@ def _beam_search(step_fn, last_logits, cache, slot_mask, positions,
         if not (t + 1 < t_max and bool(unsat.any()) and cont):
             break
         # every plane, the int8 scale planes too (llama.reorder_cache)
-        cache = {n: c.index_select(1, sel_rows) for n, c in cache.items()}
-        logits, cache = step_fn(cache, sel_tokens.reshape(-1), slot,
-                                slot_mask, positions)
+        with RECORDER.span("generation.reorder", dev):
+            cache = {n: c.index_select(1, sel_rows) for n, c in cache.items()}
+        with RECORDER.span("generation.step", dev):
+            logits, cache = step_fn(cache, sel_tokens.reshape(-1), slot,
+                                    slot_mask, positions)
         positions = positions + 1
 
     r = gcfg.num_return_sequences
     return fin_seqs[:, :r], fin_scores[:, :r]
-
-
-def synced_clock(device) -> float:
-    """perf_counter after the device's queued work has finished."""
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-    return time.perf_counter()
 
 
 def generate(prefill_fn, step_fn: Callable, inputs_embeds, attention_mask,
@@ -253,37 +248,52 @@ def generate(prefill_fn, step_fn: Callable, inputs_embeds, attention_mask,
     and beam sampling (None: seeded 0 on the embeds' device). trie:
     {"allowed": [S, V] bool, "next": [S, V] int} (numpy or torch) for
     prefix-constrained greedy or sampled decoding; beam search ignores it,
-    as the JAX engine does. `stats`, when given, receives prefill_s,
-    decode_s and decode_steps (the model calls after prefill), timed with
-    the device synchronised."""
+    as the JAX engine does. `stats` (a `profiling.Stats`), when given,
+    receives prefill_s, decode_s (the card's time between CUDA events, read
+    once the call's results are) and decode_steps (the model calls after
+    prefill). The call is the recorder's "generation.generate" span, the
+    parent of the beam search's "generation.reorder" and
+    "generation.step" event pairs."""
     if gcfg.num_return_sequences > max(gcfg.num_beams, 1):
         raise ValueError("num_return_sequences must be <= num_beams")
     b, s, _ = inputs_embeds.shape
     dev = inputs_embeds.device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    t0 = synced_clock(dev)
-    last_logits, cache, slot_mask, positions = prefill_fn(
-        inputs_embeds, attention_mask, s + gcfg.max_new_tokens)
-    t1 = synced_clock(dev)
-    steps = [0]
+    with RECORDER.span("generation.generate"):
+        m0 = mark(dev)
+        last_logits, cache, slot_mask, positions = prefill_fn(
+            inputs_embeds, attention_mask, s + gcfg.max_new_tokens)
+        m1 = mark(dev)
+        steps = [0]
 
-    def counted_step(*args):
-        steps[0] += 1
-        return step_fn(*args)
+        def counted_step(*args):
+            steps[0] += 1
+            return step_fn(*args)
 
-    if gcfg.num_beams <= 1:
-        out = _greedy_or_sample(counted_step, last_logits, cache, slot_mask,
-                                positions, s, gcfg, generator, trie)
-    else:
-        seqs, _ = _beam_search(counted_step, last_logits, cache, slot_mask,
-                               positions, s, gcfg, generator)
-        out = (seqs[:, 0] if gcfg.num_return_sequences == 1
-               else seqs.reshape(b * gcfg.num_return_sequences, -1))
-    if stats is not None:
-        stats.update(prefill_s=t1 - t0, decode_s=synced_clock(dev) - t1,
-                     decode_steps=steps[0])
+        if gcfg.num_beams <= 1:
+            out = _greedy_or_sample(counted_step, last_logits, cache,
+                                    slot_mask, positions, s, gcfg, generator,
+                                    trie)
+        else:
+            seqs, _ = _beam_search(counted_step, last_logits, cache,
+                                   slot_mask, positions, s, gcfg, generator)
+            out = (seqs[:, 0] if gcfg.num_return_sequences == 1
+                   else seqs.reshape(b * gcfg.num_return_sequences, -1))
+        _timings(stats, m0, m1, mark(dev), steps[0])
     return out
+
+
+def _timings(stats, m0, m1, m2, steps: int) -> None:
+    """stats' prefill_s (m0 → m1), decode_s (m1 → m2) and decode_steps;
+    what the decode loop's reads have already waited for is resolved."""
+    if stats is None:
+        return
+    Stats.interval(stats, "prefill_s", m0, m1)
+    Stats.interval(stats, "decode_s", m1, m2)
+    stats["decode_steps"] = steps
+    if isinstance(stats, Stats):
+        stats.settle()
 
 
 def _contrastive_search(params, cfg, inputs_embeds, attention_mask,
@@ -298,7 +308,7 @@ def _contrastive_search(params, cfg, inputs_embeds, attention_mask,
     k, alpha, t_max = gcfg.top_k, gcfg.penalty_alpha, gcfg.max_new_tokens
     total = s + t_max
     dev = inputs_embeds.device
-    t0 = synced_clock(dev)
+    m0 = mark(dev)
     cache = llama.init_cache(cfg, b, total, device=dev,
                              dtype=inputs_embeds.dtype,
                              quant=gcfg.kv_cache_quant, params=params)
@@ -316,7 +326,7 @@ def _contrastive_search(params, cfg, inputs_embeds, attention_mask,
                       device=dev)
     finished = torch.zeros(b, dtype=torch.bool, device=dev)
     rows = torch.arange(b, device=dev)
-    t1 = synced_clock(dev)
+    m1 = mark(dev)
     steps = 0
     for t in range(t_max):
         scores = _apply_common_processors(logits.float(), seqs, t, gcfg)
@@ -352,9 +362,7 @@ def _contrastive_search(params, cfg, inputs_embeds, attention_mask,
         if t + 1 >= t_max or bool(finished.all()):
             break
         logits = llama.logits(params, h_sel)
-    if stats is not None:
-        stats.update(prefill_s=t1 - t0, decode_s=synced_clock(dev) - t1,
-                     decode_steps=steps)
+    _timings(stats, m0, m1, mark(dev), steps)
     return seqs
 
 

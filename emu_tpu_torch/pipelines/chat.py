@@ -54,12 +54,13 @@ import torch
 from emu_tpu_torch import tokenization as T
 from emu_tpu_torch.checkpoint import load_emu2_checkpoint
 from emu_tpu_torch.config import Emu2Config
-from emu_tpu_torch.generation.engine import GenerationConfig, synced_clock
+from emu_tpu_torch.generation.engine import GenerationConfig
 from emu_tpu_torch.models import emu2, llama
 from emu_tpu_torch.ops.layers import Init
 from emu_tpu_torch.ops.quant import quantize_model_params
 from emu_tpu_torch.parallel import mesh as M
 from emu_tpu_torch.pipelines import preprocess
+from emu_tpu_torch.utils.profiling import RECORDER, Stats, mark
 
 
 def with_depth(cfg: Emu2Config, depth: int) -> Emu2Config:
@@ -101,7 +102,8 @@ class EmuChatGeneration:
         # (never quantized)
         kernel = params["visual"]["patch_embed"]["kernel"]
         self.device, self._img_dtype = kernel.device, kernel.dtype
-        self.last_stats: dict = {}
+        self.last_stats: dict = Stats()
+        RECORDER.anchor(self.device)
 
     def multito(self, devices) -> "EmuChatGeneration":
         """The reference's device-list API over a tensor-parallel mesh (see
@@ -116,6 +118,7 @@ class EmuChatGeneration:
         if len(devices) == 1:
             self.model.to(devices[0])
             self.device = devices[0]
+            RECORDER.anchor(self.device)
             return self
         if any(M.TP_KEY in v for v in params.values()
                if isinstance(v, dict)):
@@ -132,6 +135,7 @@ class EmuChatGeneration:
         self.model = emu2.Emu2(self.cfg, M.shard_params(
             params, mesh, emu2.sharding_rules, emu2.tensor_layout(self.cfg),
             device=self.device))
+        RECORDER.anchor(self.device)
         return self
 
     multicuda = multito
@@ -311,8 +315,9 @@ class EmuChatGeneration:
         continuous backend's routing hint; the batched path ignores it, as
         the JAX pipeline does."""
         ids = self.generate_ids(batch_inputs, is_grounding, **kwargs)
-        return self.tokenizer.batch_decode(ids.cpu().numpy(),
-                                           skip_special_tokens)
+        ids = ids.cpu().numpy()
+        self.last_stats.settle()
+        return self.tokenizer.batch_decode(ids, skip_special_tokens)
 
     @torch.inference_mode()
     def generate_ids(self, batch_inputs: List[List], is_grounding=False,
@@ -328,19 +333,19 @@ class EmuChatGeneration:
         length_penalty -1); penalty_alpha (contrastive search) sets one
         beam. generator draws the samples (seeded 0 when None). Timings of
         the call (encode_s, prefill_s, decode_s, decode_steps) land in
-        `last_stats`."""
+        `last_stats` (card times resolve once the ids are read)."""
         texts, images, videos = self._assemble_batch(batch_inputs,
                                                      is_grounding)
         ids, mask = self.tokenizer.encode_batch(texts, padding_side="left",
                                                 pad_to_multiple=64)
-        t0 = synced_clock(self.device)
+        m0 = mark(self.device)
         image_embeds, video_embeds = self._encode_visuals(images, videos)
         if penalty_alpha:
             num_beams = 1
-        self.last_stats = {"encode_s": synced_clock(self.device) - t0,
-                           "images": len(images), "frames": len(videos),
-                           "rows": len(texts), "prompt_len": ids.shape[1],
-                           "beams": max(num_beams, 1)}
+        self.last_stats = Stats(images=len(images), frames=len(videos),
+                                rows=len(texts), prompt_len=ids.shape[1],
+                                beams=max(num_beams, 1))
+        self.last_stats.interval("encode_s", m0, mark(self.device))
         gcfg = GenerationConfig(
             max_new_tokens=max_new_tokens, min_length=min_len,
             num_beams=num_beams, do_sample=do_sample,

@@ -37,7 +37,7 @@ from emu_tpu_torch import tokenization as T
 from emu_tpu_torch.config import (Emu1Config, SchedulerConfig, UNetConfig,
                                   VAEConfig)
 from emu_tpu_torch.diffusion import PNDMScheduler, unet, vae
-from emu_tpu_torch.generation.engine import synced_clock
+from emu_tpu_torch.utils.profiling import Stats, mark
 from emu_tpu_torch.models import emu1
 from emu_tpu_torch.ops.layers import Init
 from emu_tpu_torch.ops.quant import quantize_model_params, quantize_unet_params
@@ -156,23 +156,25 @@ class EmuGenerationPipeline:
                  callback: Optional[Callable] = None):
         """→ (PIL image, nsfw flag or None). generator draws the initial
         latents (seed 0 on the pipeline's device when None);
-        callback(i, latents) runs after every PLMS step; host timings land
-        in last_stats."""
+        callback(i, latents) runs after every PLMS step; timings (the
+        card's, from CUDA events) land in last_stats."""
         do_cfg = guidance_scale > 1.0
-        t0 = synced_clock(self.device)
+        m0 = mark(self.device)
         prompt_embeds = self._encode_inputs(inputs, do_cfg)   # [2|1, 32, d]
         latents = draw_latents(
             generator, (1, height // self.vae_scale_factor,
                         width // self.vae_scale_factor,
                         self.unet_cfg.in_channels),
             self.device, prompt_embeds.dtype)
-        stats = {"condition_s": synced_clock(self.device) - t0}
+        stats = Stats()
+        stats.interval("condition_s", m0, mark(self.device))
         image = _denoise_pndm(
             self.unet_params, self.unet_cfg, self.vae_params, self.vae_cfg,
             self.scheduler_cfg, num_inference_steps, latents, prompt_embeds,
             guidance_scale, do_cfg, cache_interval, callback, stats)
         self.last_stats = stats
         image = image.cpu().numpy()
+        stats.settle()
         nsfw = None
         if self.safety_checker is not None:
             image, nsfw = self.safety_checker(image)
@@ -197,17 +199,18 @@ def cfg_mix(eps: torch.Tensor, guidance_scale: float) -> torch.Tensor:
     return uncond.float() + guidance_scale * (cond - uncond).float()
 
 
-def decode_latents(vae_params, vae_cfg: VAEConfig, latents, t0: float,
+def decode_latents(vae_params, vae_cfg: VAEConfig, latents, t0: tuple,
                    stats: Optional[dict]):
     """The VAE decode of final latents → images [B, H, W, 3] fp32 in
-    [0, 1]; stats gets denoise_s (since t0) and decode_s."""
-    t1 = synced_clock(latents.device)
+    [0, 1]; stats (a `profiling.Stats`) gets denoise_s (since the mark t0,
+    `profiling.mark`) and decode_s, the card's times where it is one."""
+    t1 = mark(latents.device)
     img = vae.decode(vae_params, vae_cfg, latents / torch.tensor(
         vae_cfg.scaling_factor, dtype=latents.dtype))
     img = (img.float() / 2 + 0.5).clamp(0.0, 1.0)
     if stats is not None:
-        stats["denoise_s"] = t1 - t0
-        stats["decode_s"] = synced_clock(latents.device) - t1
+        Stats.interval(stats, "denoise_s", t0, t1)
+        Stats.interval(stats, "decode_s", t1, mark(latents.device))
     return img
 
 
@@ -218,7 +221,7 @@ def _denoise_pndm(unet_params, unet_cfg, vae_params, vae_cfg, sched_cfg,
     """The PLMS denoise loop (steps + 1 UNet calls) and the VAE decode →
     images [B, H, W, 3] fp32 in [0, 1]; cache_interval as
     `visual_generation._denoise_euler`."""
-    t0 = synced_clock(latents.device)
+    t0 = mark(latents.device)
     sched = PNDMScheduler(sched_cfg, num_inference_steps=steps)
     state = sched.init_state()
     n_branches = prompt_embeds.shape[0] if do_cfg else 1

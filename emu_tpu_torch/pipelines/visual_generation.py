@@ -39,7 +39,7 @@ from emu_tpu_torch import tokenization as T
 from emu_tpu_torch.config import (Emu2Config, SchedulerConfig, UNetConfig,
                                   VAEConfig)
 from emu_tpu_torch.diffusion import EulerDiscreteScheduler, unet, vae
-from emu_tpu_torch.generation.engine import synced_clock
+from emu_tpu_torch.utils.profiling import Stats, mark
 from emu_tpu_torch.models import emu2, llama
 from emu_tpu_torch.ops.layers import Init
 from emu_tpu_torch.ops.quant import quantize_model_params, quantize_unet_params
@@ -221,12 +221,13 @@ class EmuVisualGeneration:
                  ) -> VisualGenerationOutput:
         """inputs: a prompt string, an image, or a list of both. generator:
         draws the initial latents (seed 0 on the pipeline's device when
-        None). callback(i, latents) runs after every denoise step. Host
-        timings (condition_s, denoise_s, decode_s) land in last_stats."""
+        None). callback(i, latents) runs after every denoise step. Timings
+        (condition_s, denoise_s, decode_s; the card's, from CUDA events)
+        land in last_stats."""
         if not isinstance(inputs, list):
             inputs = [inputs]
         do_cfg = guidance_scale > 1.0
-        t0 = synced_clock(self.device)
+        m0 = mark(self.device)
         prompt_embeds = self._encode_inputs(inputs, do_cfg)
         time_ids = torch.tensor(
             list(original_size) + list(crop_info) + [height, width],
@@ -237,13 +238,15 @@ class EmuVisualGeneration:
                         width // self.vae_scale_factor,
                         self.unet_cfg.in_channels),
             self.device, prompt_embeds.dtype)
-        stats = {"condition_s": synced_clock(self.device) - t0}
+        stats = Stats()
+        stats.interval("condition_s", m0, mark(self.device))
         image = _denoise_euler(
             self.unet_params, self.unet_cfg, self.vae_params, self.vae_cfg,
             self.scheduler_cfg, num_inference_steps, latents, prompt_embeds,
             time_ids, guidance_scale, do_cfg, cache_interval, callback, stats)
         self.last_stats = stats
         image = image.cpu().numpy()
+        stats.settle()
         nsfw = None
         if self.safety_checker is not None:
             image, nsfw = self.safety_checker(image)
@@ -261,7 +264,7 @@ def _denoise_euler(unet_params, unet_cfg, vae_params, vae_cfg, sched_cfg,
     `cache_interval` steps and reuses its deep feature for the rest (the
     UNet's `deep_cache`: an approximation that trades a little fidelity for
     most of the transformer-heavy interior)."""
-    t0 = synced_clock(latents.device)
+    t0 = mark(latents.device)
     sched = EulerDiscreteScheduler(sched_cfg, num_inference_steps=steps)
     latents = latents * torch.tensor(sched.init_noise_sigma,
                                      dtype=latents.dtype)

@@ -11,7 +11,10 @@ as form fields, JSON response {"code": 0|-1, "data": text | base64-WEBP}.
 
 Implemented on the stdlib ThreadingHTTPServer (flask is not in this image);
 replicas are checked out of a `Helper` pool per request, and per-request
-log ids + latency are logged like the reference.
+log ids + latency are logged like the reference. Beside the reference's
+routes: GET /healthz, and GET /v1/stats, the recorder's counters and the
+medians of its recent requests' queue wait, time to first token and gap
+between tokens (`profiling.Recorder.summary`).
 """
 
 from __future__ import annotations
@@ -187,6 +190,10 @@ def make_server(server: EmuHTTPServer, host: str = "0.0.0.0",
                 ctype = "text/html; charset=utf-8"
             elif self.path == "/healthz":
                 body = b'{"status": "ok"}'
+                ctype = "application/json"
+            elif self.path == "/v1/stats":
+                from emu_tpu_torch.utils.profiling import RECORDER
+                body = json.dumps(RECORDER.summary()).encode()
                 ctype = "application/json"
             else:
                 self.send_error(404)

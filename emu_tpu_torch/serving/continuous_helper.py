@@ -22,6 +22,12 @@ field): text-only prompts run draft-propose + single-pass target-verify
 (`generation.speculative`) on a side thread — output provably identical
 to the engine's greedy stream — and prompts with images fall back to the
 slot engine.
+
+Each request routed to the engine is a "request" record of
+`profiling.RECORDER`, opened when it is queued; the dispatcher marks when
+it admits it ("admitted") and the engine when its first and last tokens
+are made. Each admission burst is a "helper.admit" record with its size
+("burst"). `GET /v1/stats` reads them.
 """
 
 from __future__ import annotations
@@ -29,8 +35,11 @@ from __future__ import annotations
 import logging
 import queue
 import threading
+import time
 from concurrent.futures import Future
 from typing import Dict, List, Optional, Tuple
+
+from emu_tpu_torch.utils.profiling import RECORDER
 
 logger = logging.getLogger("emu_tpu_torch.serving")
 
@@ -98,31 +107,39 @@ class ContinuousChatHelper:
         (submit_many: deferred first-token fetch, one dispatch per
         prompt bucket). A request that fails to embed or that the engine
         cannot admit (`check_request`) fails only its own future."""
-        rows, temps, futs = [], [], []
-        for fut, inputs, kwargs in items:
+        t_admit = time.monotonic()
+        with RECORDER.span("helper.admit") as burst:
+            if burst is not None:
+                burst.counts["burst"] = len(items)
+            rows, temps, futs, records = [], [], [], []
+            for fut, inputs, kwargs, *rec in items:
+                record = rec[0] if rec else None
+                if record is not None:
+                    record.marks["admitted"] = t_admit
+                try:
+                    embeds, mask, _ = self.pipeline.embed_inputs(
+                        inputs, kwargs.get("is_grounding", False))
+                    temp = None
+                    if self.engine.per_request_sampling:
+                        temp = (float(kwargs.get("temperature", 0.7))
+                                if kwargs.get("do_sample") else 0.0)
+                    row = (embeds, mask,
+                           int(kwargs.get("max_new_tokens", 10)), temp)
+                    # the one admission check: fails this future only
+                    temps.append(self.engine.check_request(*row))
+                    rows.append(row)
+                    futs.append(fut)
+                    records.append(record)
+                except Exception as ex:  # noqa: BLE001
+                    fut.set_exception(ex)
+            if not rows:
+                return
             try:
-                embeds, mask, _ = self.pipeline.embed_inputs(
-                    inputs, kwargs.get("is_grounding", False))
-                temp = None
-                if self.engine.per_request_sampling:
-                    temp = (float(kwargs.get("temperature", 0.7))
-                            if kwargs.get("do_sample") else 0.0)
-                row = (embeds, mask, int(kwargs.get("max_new_tokens", 10)),
-                       temp)
-                # the one admission check: fails this future only
-                temps.append(self.engine.check_request(*row))
-                rows.append(row)
-                futs.append(fut)
+                rids = self.engine.submit_many(rows, temps, records=records)
             except Exception as ex:  # noqa: BLE001
-                fut.set_exception(ex)
-        if not rows:
-            return
-        try:
-            rids = self.engine.submit_many(rows, temps)
-        except Exception as ex:  # noqa: BLE001
-            for fut in futs:
-                fut.set_exception(ex)
-            return
+                for fut in futs:
+                    fut.set_exception(ex)
+                return
         for rid, fut in zip(rids, futs):
             self.waiting[rid] = fut
 
@@ -240,5 +257,6 @@ class _Proxy:
                              args=(fut, inputs, kwargs),
                              daemon=True).start()
         else:
-            self.helper.pending.put((fut, inputs, kwargs))
+            self.helper.pending.put((fut, inputs, kwargs,
+                                     RECORDER.open("request")))
         return fut.result(timeout=600)
