@@ -27,7 +27,7 @@ submitted to each) and records the same tokens.
 
 Every decode, mixed and prefill step is a record of `profiling.RECORDER`
 ("engine.decode", "engine.mixed", "engine.prefill": a host span and a CUDA
-event pair) with the rows it computed ("rows": max_slots, max_slots x
+event pair) with the rows it computed ("rows": max_slots, max_slots +
 chunk_size, the bucket x the prefill's rows) and, once its results are
 read, the rows that carried a token ("useful": active decode rows plus
 the chunk's or the prompts' real tokens). A request's record ("request",
@@ -167,28 +167,25 @@ class ContinuousEngine:
     def _mixed(self, chunk_emb, admit_slot: int, qlen: int, final: bool,
                max_new_admit: int, temp_admit: float):
         """One MIXED step (chunked prefill): every active slot decodes its
-        next token (q column 0) while `admit_slot` consumes `qlen` prompt
-        tokens of `chunk_emb` [q, D]; when `final`, the admitting row
-        samples its first generated token from its last chunk column.
-        Inactive, non-admitting rows ride along masked."""
+        next token (one row each) while `admit_slot` consumes `qlen` prompt
+        tokens of `chunk_emb` [q, D] (q more rows: `llama.
+        decode_packed_rows`); when `final`, the admitting row samples its
+        first generated token from its last chunk row. Inactive,
+        non-admitting rows ride along masked."""
         params, st = self.params, self.state
         active = st["active"]
         bidx = self._bidx
-        q = chunk_emb.shape[0]
         is_admit = bidx == admit_slot
 
-        base = llama.embed(params, st["last_token"][:, None])     # [B,1,D]
-        tok = torch.zeros(self.max_slots, q, base.shape[-1], dtype=base.dtype,
-                          device=base.device)
-        tok[:, 0] = base[:, 0]
-        tok[admit_slot] = chunk_emb.to(base.dtype)
+        base = llama.embed(params, st["last_token"])              # [B, D]
+        tok = torch.cat([base, chunk_emb.to(base.dtype)])        # [B + q, D]
         slots = st["write_idx"]
-        hid, _ = llama.decode_mixed_rows(params, self.cfg, st["cache"], tok,
-                                         slots, st["slot_mask"],
-                                         st["position"])
-        qidx = torch.where(is_admit, qlen - 1, 0)
+        hid, _ = llama.decode_packed_rows(params, self.cfg, st["cache"], tok,
+                                          admit_slot, slots, st["slot_mask"],
+                                          st["position"])
+        row = torch.where(is_admit, self.max_slots + qlen - 1, bidx)
         temps = torch.where(is_admit, temp_admit, st["temperature"])
-        nxt = self._sample(llama.logits(params, hid[bidx, qidx]), temps)
+        nxt = self._sample(llama.logits(params, hid[row]), temps)
 
         # decode-row bookkeeping (as _step_body)
         n_gen = st["n_generated"] + active
@@ -466,7 +463,7 @@ class ContinuousEngine:
         with RECORDER.span("engine.mixed", self.device) as step:
             out_tok, was_active, first = self._mixed(
                 chunk, a["slot"], qlen, final, a["max_new"], a["temp"])
-        _step_rows(step, self.max_slots * q, qlen)
+        _step_rows(step, self.max_slots + q, qlen)
         if final:
             _first_token(a["req"], step)
         for slot, rid in enumerate(self.slot_req):

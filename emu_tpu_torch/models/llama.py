@@ -8,10 +8,10 @@ token) scales (`init_cache(quant=True)`). Unlike the JAX package, whose
 arrays are immutable, the port UPDATES IT IN PLACE: `prefill` writes each
 layer's rows as it goes (quantized when the cache is int8), and the decode
 forms (`decode_step`, `decode_step_rows`, `decode_mixed_rows`,
-`decode_chunk`) defer their writes — every layer attends its own new k/v
-as extra columns (kernel D) and the step then commits all layers' rows in
-one scatter per plane (`_cache_write_all`: one slot, per-row slots, or
-per-row chunks).
+`decode_packed_rows`, `decode_chunk`) defer their writes — every layer
+attends its own new k/v as extra columns (kernel D) and the step then
+commits all layers' rows in one scatter per plane (`_cache_write_all`: one
+slot, per-row slots, or per-row chunks).
 
 Both norms of every bf16 layer run through kernel C at every row count;
 the final norm keeps HF semantics (`layers.rms_norm`), as in the JAX
@@ -419,25 +419,46 @@ def _cache_write_all(cache: dict, new_rows, idx) -> dict:
     return cache
 
 
-def _deferred_decode(params: dict, cfg: LlamaConfig, cache: dict,
-                     token_embeds, rows, cache_mask, commit_idx):
-    """Shared deferred-write decode body: each layer attends the cache plus
-    its own new k/v as extra columns (kernel D), the new rows of all layers
-    commit after the loop (`_cache_write_all`). cache_mask must EXCLUDE the
-    in-flight slots; commit_idx is a slot or a (bidx, slots) pair."""
+def _cache_attend(cache: dict, cfg: LlamaConfig, cache_mask):
+    """attend(i, q, k_new, v_new): layer i's attention over the cache
+    (kernel D) with the layer's new k/v [B, Hkv, q, D] as extra columns.
+    cache_mask must EXCLUDE the in-flight slots."""
+    def attend(i, q, k_new, v_new):
+        kv = _cache_kv(cache, i)
+        kv["k_new"], kv["v_new"] = k_new, v_new
+        return cache_attention(q, kv, kv_valid=cache_mask,
+                               scale=cfg.head_dim ** -0.5)
+    return attend
+
+
+def _decode_layers(params: dict, cfg: LlamaConfig, token_embeds, rows,
+                   attend):
+    """Shared deferred-write decode body: every layer runs with
+    attend(i, q, k_new, v_new) (`_cache_attend`); nothing is written while
+    the layers run. Returns (post-norm hidden, every layer's new rows
+    [L, 2, B, Hkv, q, D]) for the caller to commit (`_cache_write_all`)."""
     new_rows = []
     x = token_embeds
     for i in range(cfg.num_hidden_layers):
-        def attend(q, k, v, i=i):
-            kv = _cache_kv(cache, i)
-            kv["k_new"], kv["v_new"] = k.transpose(1, 2), v.transpose(1, 2)
-            new_rows.append(torch.stack([kv["k_new"], kv["v_new"]]))
-            return cache_attention(q, kv, kv_valid=cache_mask,
-                                   scale=cfg.head_dim ** -0.5)
+        def layer_attend(q, k, v, i=i):
+            kn, vn = k.transpose(1, 2), v.transpose(1, 2)
+            new_rows.append(torch.stack([kn, vn]))
+            return attend(i, q, kn, vn)
 
-        x = _layer(layer(params["layers"], i), cfg, x, rows, attend)
-    _cache_write_all(cache, torch.stack(new_rows), commit_idx)
-    return L.rms_norm(params["norm"], x, cfg.rms_norm_eps), cache
+        x = _layer(layer(params["layers"], i), cfg, x, rows, layer_attend)
+    return (L.rms_norm(params["norm"], x, cfg.rms_norm_eps),
+            torch.stack(new_rows))
+
+
+def _deferred_decode(params: dict, cfg: LlamaConfig, cache: dict,
+                     token_embeds, rows, cache_mask, commit_idx):
+    """`_decode_layers` over the cache, then one commit of all layers'
+    rows. cache_mask must EXCLUDE the in-flight slots; commit_idx is a slot
+    or a (bidx, slots) pair."""
+    hid, new_rows = _decode_layers(params, cfg, token_embeds, rows,
+                                   _cache_attend(cache, cfg, cache_mask))
+    _cache_write_all(cache, new_rows, commit_idx)
+    return hid, cache
 
 
 def decode_step(params: dict, cfg: LlamaConfig, cache: dict, token_embeds,
@@ -507,6 +528,51 @@ def decode_mixed_rows(params: dict, cfg: LlamaConfig, cache: dict,
     rows = R.gather_rope_rows(*rope_tables(cfg, max_len, dev), pos_grid)
     return _deferred_decode(params, cfg, cache, token_embeds, rows,
                             slot_mask, (torch.arange(b, device=dev), slots))
+
+
+def decode_packed_rows(params: dict, cfg: LlamaConfig, cache: dict,
+                       token_embeds, admit: int, slots, slot_mask, positions):
+    """PACKED mixed decode + prefill step (chunked prefill of one slot):
+    token_embeds [B + q, D], B the cache's rows. Row b < B is slot b's
+    decode token, taking slot slots[b]; the last q rows are slot `admit`'s
+    chunk, taking slots [slots[admit], slots[admit] + q). Row `admit` is
+    padding: the chunk's commit overwrites its write. Every query sees the
+    committed cache (slot_mask must NOT include any in-flight slot) plus
+    its own new columns: a decode row its own token (kernel D's Sq = 1
+    form), chunk row i chunk columns j <= i (D's chunk form on the
+    admitting slot alone). positions [B]: each slot's next rope position.
+    The layers run once over the B + q rows (`_layer`), where
+    `decode_mixed_rows` runs B x q. Returns (post-norm hidden [B + q, D],
+    cache)."""
+    b = slots.shape[0]
+    qn = token_embeds.shape[0] - b
+    max_len = cache["k"].shape[3]
+    dev = token_embeds.device
+    # clamp to the table (overhang rows are padding, never validated)
+    pos = torch.cat([positions, positions[admit]
+                     + torch.arange(qn, device=dev)]).clamp(max=max_len - 1)
+    rows = R.gather_rope_rows(*rope_tables(cfg, max_len, dev), pos[:, None])
+    decode = _cache_attend(cache, cfg, slot_mask)
+    # the admitting slot as a cache of one row: the slots folded into the
+    # layer axis (a view), so kernel D reads layer i's row at i * B + admit
+    own = _cache_attend({n: c.flatten(0, 1).unsqueeze(1)
+                         for n, c in cache.items()},
+                        cfg, slot_mask[admit:admit + 1])
+
+    def attend(i, q, kn, vn):                        # kn, vn [B+q, Hkv, 1, D]
+        chunk = own(i * b + admit, q[b:].transpose(0, 1),
+                    *(t[b:].transpose(0, 2) for t in (kn, vn)))
+        return torch.cat([decode(i, q[:b], kn[:b], vn[:b]),
+                          chunk.transpose(0, 1)])
+
+    hid, new_rows = _decode_layers(params, cfg, token_embeds[:, None], rows,
+                                   attend)
+    _cache_write_all(cache, new_rows[:, :, :b],
+                     (torch.arange(b, device=dev), slots))
+    _cache_write_all(cache, new_rows[:, :, b:].transpose(2, 4),
+                     (torch.tensor([admit], device=dev),
+                      slots[admit:admit + 1]))
+    return hid[:, 0], cache
 
 
 def regress_embeds(params: dict, cfg: LlamaConfig, n: int, embeds,

@@ -160,6 +160,29 @@ def sc_chunked_int8(side, cfg):
     return sc_chunked(side, cfg, quant=True)
 
 
+def sc_chunked_pool(side, cfg, quant=False):
+    """One burst mixes a chunked and a bucket admission (`submit_many`):
+    the chunked prompt streams into a middle slot while the bucket rows
+    decode, and a bucket row of max_new 2 retires and rides along
+    inactive; then a chunked prompt streams into the last slot."""
+    a, c, long_b, e, long_d = prompts(41, 6, 12, 29, 5, 19)
+    eng = engine(side, cfg, max_slots=4, max_len=64, prefill_buckets=(8, 16),
+                 eos_token_id=None, chunk_size=8, kv_cache_quant=quant)
+    ids = [eng.submit(*side.emb(p), 14) for p in (a, c)]
+    ids += eng.submit_many([(*side.emb(long_b), 6), (*side.emb(e), 2)])
+    assert None not in eng.slot_req
+    for _ in range(4):                      # long_b's 29 tokens: 4 chunks
+        eng.step()
+    assert not eng._admissions and eng.slot_req.index(None) == 3
+    ids.append(eng.submit(*side.emb(long_d), 5))
+    res = eng.run_until_drained()
+    return [res[i] for i in ids]
+
+
+def sc_chunked_pool_int8(side, cfg):
+    return sc_chunked_pool(side, cfg, quant=True)
+
+
 def sc_chunked_first_eos(side, cfg):
     """A chunked admission whose first token is EOS completes at its final
     chunk and frees its slot (eos chosen as that prompt's first greedy
@@ -224,7 +247,8 @@ def sc_submit_many(side, cfg):
 
 SCENARIOS = {f.__name__[3:]: f for f in (
     sc_staggered, sc_step_block, sc_slot_reuse, sc_int8_kv, sc_chunked,
-    sc_chunked_int8, sc_chunked_first_eos, sc_submit_many)}
+    sc_chunked_int8, sc_chunked_pool, sc_chunked_pool_int8,
+    sc_chunked_first_eos, sc_submit_many)}
 
 
 @pytest.mark.parametrize("name", sorted(SCENARIOS))

@@ -588,6 +588,69 @@ def test_decode_attention_new_forms(gen, b, h, hkv, s, d, qn, quant):
                                                    **kw))
 
 
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_decode_packed_rows_on_the_card(gen, quant):
+    """The packed mixed step (8 decode rows + one slot's 32-row chunk, a
+    short final chunk of 20) against the dense `decode_mixed_rows` on the
+    same state, a 2-layer decoder at head width 128: kernel D's Sq = 1 form
+    over the decode rows and its chunk form over the admitting slot alone
+    (the cache's slots folded into its layer axis) run once a layer; the
+    hidden states and committed rows agree within bf16 rounding."""
+    from emu_tpu_torch.bridge import cast_tree
+    from emu_tpu_torch.config import LlamaConfig
+    from emu_tpu_torch.models import llama
+    from emu_tpu_torch.ops.layers import Init
+    cfg = LlamaConfig(hidden_size=512, intermediate_size=1024,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      vocab_size=97, extended_vocab_size=97,
+                      max_position_embeddings=256)
+    params = cast_tree(llama.init(cfg, Init(generator=torch.Generator()
+                                            .manual_seed(0))),
+                       "cuda", torch.bfloat16)
+    b, total, q, admit, qlen = 8, 256, 32, 5, 20
+    shape = (cfg.num_hidden_layers, b, cfg.kv_heads, total, cfg.head_dim)
+    if quant:
+        cache = dict(zip(("k", "k_scale"), _int8_planes(gen, *shape)))
+        cache.update(zip(("v", "v_scale"), _int8_planes(gen, *shape)))
+    else:
+        cache = {n: randn(gen, *shape) for n in ("k", "v")}
+    slots = torch.tensor([40, 7, 0, 130, 99, 200, 64, 250], device="cuda")
+    sm = torch.arange(total, device="cuda")[None] < slots[:, None]
+    pos = sm.sum(-1)
+    dec, chunk = randn(gen, b, cfg.hidden_size), randn(gen, q,
+                                                       cfg.hidden_size)
+    chunk[qlen:] = 0
+    grid = torch.zeros(b, q, cfg.hidden_size, device="cuda",
+                       dtype=torch.bfloat16)
+    grid[:, 0] = dec
+    grid[admit] = chunk
+    dense = {n: c.clone() for n, c in cache.items()}
+    packed = {n: c.clone() for n, c in cache.items()}
+    hd, _ = llama.decode_mixed_rows(params, cfg, dense, grid, slots, sm, pos)
+    forms = dict(D.decode_attention.forms)
+    hp, _ = llama.decode_packed_rows(params, cfg, packed,
+                                     torch.cat([dec, chunk]), admit, slots,
+                                     sm, pos)
+    torch.cuda.synchronize()
+    kind = "int8" if quant else "bf16"
+    assert D.decode_attention.forms[kind] == forms[kind] + 2
+    assert D.decode_attention.forms["chunk_" + kind] == \
+        forms["chunk_" + kind] + 2
+    others = [r for r in range(b) if r != admit]
+    assert_close(hp[others], hd[others, 0])
+    assert_close(hp[b:b + qlen], hd[admit, :qlen])
+    for n in cache:
+        got, want = packed[n].transpose(2, 3), dense[n].transpose(2, 3)
+        cols = [(r, int(slots[r])) for r in others] + [
+            (admit, int(slots[admit]) + j) for j in range(qlen)]
+        for r, s in cols:
+            if quant and n in ("k", "v"):
+                diff = (got[:, r, s].float() - want[:, r, s].float()).abs()
+                assert diff.max() <= 1, (n, r, s)
+            else:
+                assert_close(got[:, r, s], want[:, r, s])
+
+
 @pytest.mark.parametrize("qn,quant", [(1, False), (1, True), (8, False),
                                       (8, True)])
 def test_paged_decode_attention_kernel(gen, qn, quant):

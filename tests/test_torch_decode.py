@@ -291,6 +291,78 @@ def test_decode_mixed_rows_matches_jax(lm, quant):
     close_cache(tc2, jc2)
 
 
+def packed_state(tcfg, kind, b=4, total=24, seed=9):
+    """A cache of `kind` ("float": fp32, "bf16", "int8": int8 values and
+    scales under bf16 activations) holding random committed rows, and each
+    row's write index, committed mask and next position. Row 2 is an
+    empty slot riding along; row 3 writes at 20, so a chunk there runs past
+    the cache's end."""
+    rng = np.random.default_rng(seed)
+    shape = (tcfg.num_hidden_layers, b, tcfg.kv_heads, total, tcfg.head_dim)
+    if kind == "int8":
+        cache = {}
+        for n in ("k", "v"):
+            vals, scales = int8_cache(rng, *shape)
+            cache[n], cache[n + "_scale"] = t(vals), t(scales)
+    else:
+        dt = torch.float32 if kind == "float" else torch.bfloat16
+        cache = {n: t(rnd(rng, *shape)).to(dt) for n in ("k", "v")}
+    slots = torch.tensor([6, 9, 0, 20])
+    sm = torch.arange(total)[None] < slots[:, None]
+    sm[0, :2] = False                       # a left-padded bucket row
+    return cache, slots, sm, sm.sum(-1), rng
+
+
+@pytest.mark.parametrize("admit,qlen", [(0, 5), (0, 3), (1, 5), (1, 2),
+                                        (3, 5), (3, 3)],
+                         ids=["first-full", "first-short", "middle-full",
+                              "middle-short", "last-full", "last-short"])
+@pytest.mark.parametrize("kind", ["float", "bf16", "int8"])
+def test_decode_packed_rows_matches_mixed_rows(lm, kind, admit, qlen):
+    """The packed mixed step (B decode rows + one slot's chunk of q) gives
+    `decode_mixed_rows`' hidden states and committed cache rows on the same
+    state: column 0 of every decode row, the admitting row's qlen real
+    columns (a short final chunk is zero-padded to q, as the engine pads
+    it). It writes nothing but its rows' slots."""
+    _, _, tcfg, tp = lm
+    q, b = 5, 4
+    cache, slots, sm, pos, rng = packed_state(tcfg, kind)
+    dt = torch.float32 if kind == "float" else torch.bfloat16
+    tp = bridge.cast_tree(tp, "cpu", dt)
+    dec = t(rnd(rng, b, tcfg.hidden_size)).to(dt)
+    chunk = torch.zeros(q, tcfg.hidden_size, dtype=dt)
+    chunk[:qlen] = t(rnd(rng, qlen, tcfg.hidden_size)).to(dt)
+    grid = torch.zeros(b, q, tcfg.hidden_size, dtype=dt)
+    grid[:, 0] = dec
+    grid[admit] = chunk
+    dense = {n: c.clone() for n, c in cache.items()}
+    packed = {n: c.clone() for n, c in cache.items()}
+    hd, _ = llama.decode_mixed_rows(tp, tcfg, dense, grid, slots, sm, pos)
+    hp, _ = llama.decode_packed_rows(tp, tcfg, packed, torch.cat([dec, chunk]),
+                                     admit, slots, sm, pos)
+    assert hp.shape == (b + q, tcfg.hidden_size)
+    tol = TOL if kind == "float" else 2e-2
+    others = [r for r in range(b) if r != admit]
+    close(hp[others], hd[others, 0].float(), tol)
+    close(hp[b:b + qlen], hd[admit, :qlen].float(), tol)
+    written = torch.zeros(b, cache["k"].shape[3], dtype=torch.bool)
+    written[others, slots[others]] = True
+    written[admit, slots[admit]:slots[admit] + qlen] = True
+    wrote = written.clone()
+    wrote[admit, slots[admit]:slots[admit] + q] = True
+    for n in cache:
+        # [L, B, S, Hkv(, D)]: the masks index (row, slot)
+        got, want, was = (c[n].float().transpose(2, 3)
+                          for c in (packed, dense, cache))
+        assert torch.equal(got[:, ~wrote], was[:, ~wrote]), n
+        diff = (got - want)[:, written].abs()
+        if packed[n].dtype == torch.int8:
+            assert diff.max() <= 1 and (diff > 0).float().mean() < 0.01, n
+        else:
+            bound = tol * (1 + want[:, written].abs().max())
+            assert diff.max() <= bound, (n, float(diff.max()))
+
+
 @pytest.mark.parametrize("quant", [False, True], ids=["float", "int8"])
 def test_decode_chunk_matches_jax(lm, quant):
     """The speculative verify chunk at one shared slot."""

@@ -179,8 +179,9 @@ def test_engine_rows_and_request_times(recorder):
     """One bucket admission (5 tokens into the 8 bucket), one chunked
     admission (18 tokens in chunks of 4 over 5 mixed steps while the first
     request decodes its last 5 tokens) and a decode block of 4: rows
-    computed 8 + 5 x 16 + 4 x 4 = 104, rows that carried a token 5 + (5 x 1
-    + 18) + 4 = 32; every request queued <= admitted <= first <= last."""
+    computed 8 + 5 x (4 + 4) + 4 x 4 = 64 (a mixed step computes one row a
+    slot and the chunk's 4), rows that carried a token 5 + (5 x 1 + 18) + 4
+    = 32; every request queued <= admitted <= first <= last."""
     cfg = CFG.llama
     params = llama.init(cfg, Init(
         generator=torch.Generator().manual_seed(3)))
@@ -204,10 +205,10 @@ def test_engine_rows_and_request_times(recorder):
     assert [r.name for r in steps] == (["engine.prefill"]
                                        + ["engine.mixed"] * 5
                                        + ["engine.decode"] * 4)
-    assert [r.counts["rows"] for r in steps] == [8] + [16] * 5 + [4] * 4
+    assert [r.counts["rows"] for r in steps] == [8] + [8] * 5 + [4] * 4
     assert [r.counts["useful"] for r in steps] == [5, 5, 5, 5, 5, 3] \
         + [1] * 4
-    assert recorder.counters["engine.rows"] == 104
+    assert recorder.counters["engine.rows"] == 64
     assert recorder.counters["engine.useful_rows"] == 32
     reqs = [r for r in recorder.snapshot() if r["name"] == "request"]
     assert [r["counts"]["tokens"] for r in reqs] == [6, 5]
